@@ -1,0 +1,40 @@
+"""Device helpers and the float32 precision policy of the port.
+
+Importing this module pins every float32 matrix product to full IEEE
+float32: no TF32 in cuBLAS or cuDNN. This keeps the precision split of the
+JAX package (``docs/design.md``): geometry in exact f32 (TF32 would move
+near-tie cluster assignments), accumulated statistics in f64, small solves
+in host f64.
+
+Nothing in the port picks a device on its own: functions take an explicit
+``device`` (or follow the device of the tensors they are given). CPU
+tensors run the plain PyTorch versions; CUDA tensors launch the
+hand-written kernels or raise.
+"""
+from __future__ import annotations
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+
+
+def as_device(device):
+    """``torch.device`` from a string or device; ``None`` is refused."""
+    if device is None:
+        raise ValueError("an explicit device is required ('cpu' or 'cuda')")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but no CUDA device is available")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+def to_device(a, device, dtype=None):
+    """A numpy array (or tensor) as a contiguous tensor on ``device``."""
+    t = torch.as_tensor(a)
+    if dtype is not None:
+        t = t.to(dtype)
+    return t.to(device).contiguous()

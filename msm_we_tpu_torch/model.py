@@ -1,0 +1,646 @@
+"""modelWE facade of the port: the haMSM build on one device.
+
+Counterpart of ``msm_we_tpu/model.py::modelWE``, with only the methods the
+build ``build_analyze_model`` runs: ingest -> PCA -> stratified k-means per
+WE bin -> discretize parent and child frames -> f64 flux matrix ->
+cleaning -> transition matrix -> steady state -> JtargetSS. The attribute
+names are the JAX package's (``fluxMatrixRaw``, ``fluxMatrix``, ``pSS``,
+``JtargetSS``, ``stage_timings``, ``dtrajs``, ``pair_dtrajs``, ...).
+
+One device replaces the JAX package's mesh: ``modelWE(device=...)``. With
+CUDA the discretization, the streaming clustering scan and the cleaning
+re-assignments launch the hand-written kernels of
+``ops/stratified_assign.py``; with the CPU they run the plain versions.
+The analysis tail stays in host float64.
+
+The data come in memory, as an :class:`~msm_we_tpu_torch.data.ArrayWEDataset`
+passed where the JAX package takes a list of west.h5 paths. What the port
+does not cover yet raises ``NotImplementedError`` naming its ROADMAP entry.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from . import cleaning as _cleaning
+from . import discretization as _discretization
+from . import fluxmatrix as _fluxmatrix
+from ._device import as_device
+from ._logging import log
+from .binning import find_nearest_bin
+from .data.arrays import ArrayWEDataset
+from .features import device_row_feats, featurize_all
+from .ops import linalg
+from .ops.pca import IdentityCoordinates, MomentAccumulator
+from .ops.stratified import StratifiedKmeans
+
+SUPPORTED_DIMREDUCE = ["none", "pca"]
+
+
+def _not_ported(what, entry):
+    return NotImplementedError(
+        f"{what} is not ported to msm_we_tpu_torch yet (ROADMAP, queue 1: {entry})"
+    )
+
+
+def default_process_coordinates(coords):
+    """Default featurization: flatten (n, atoms, 3) -> (n, atoms*3)."""
+    coords = np.asarray(coords)
+    return coords.reshape(coords.shape[0], -1)
+
+
+class modelWE:
+    """History-augmented Markov state model estimation from WE data, on
+    ``device`` ("cpu" runs the plain PyTorch versions, "cuda" the
+    kernels)."""
+
+    def __init__(self, device="cpu"):
+        self.device = as_device(device)
+        self.modelName = None
+        self.pcoord_ndim = None
+        self.pcoord_len = None
+        self.tau = None
+        self.n_lag = 0
+
+        self._basis_pcoord_bounds = None
+        self._target_pcoord_bounds = None
+        self.basis_bin_centers = None
+        self.target_bin_centers = None
+
+        self.coordinates = None
+        self.ndim = None
+        self.dimReduceMethod = None
+        self.dedup_coordinates = "auto"
+
+        self.n_clusters = None
+        self.clusters = None
+        self.clustering_method = None
+        self.dtrajs = None
+        self.pair_dtrajs = None
+        self._parent_idx = None
+        self._child_idx = None
+
+        self.fluxMatrixRaw = None
+        self.fluxMatrix = None
+        self.Tmatrix = None
+        self.pSS = None
+        self.JtargetSS = None
+        self.lagtime = None
+        self.indBasis = None
+        self.indTargets = None
+        self.nBins = None
+
+        self.targetRMSD_centers = None
+        self.targetRMSD_minmax = None
+        self.all_centers = None
+        self.sorted_centers = None
+        self.use_weights_in_clustering = False
+        self.processCoordinates = default_process_coordinates
+
+        self._dataset = None
+        self._features = None
+        self._strat = None
+        self._bin_mapper = None
+        self._fluxMatrixParams = None
+        self._cluster_seed = 0
+
+    # ------------------------------------------------------------------ init
+    def initialize(self, fileSpecifier, refPDBfile, modelName,
+                   basis_pcoord_bounds=None, target_pcoord_bounds=None,
+                   dim_reduce_method="none", tau=None, pcoord_ndim=1,
+                   auxpath="coord", _suppress_boundary_warning=False,
+                   use_weights_in_clustering=False, processCoordinates=None,
+                   dedup_coordinates="auto"):
+        """Set up the model (reference ``initialize``, ``msm_we.py:143-277``).
+
+        ``fileSpecifier`` is an :class:`ArrayWEDataset` (the port's ingest
+        seam: the JAX package takes west.h5 paths here). ``dedup_coordinates``
+        ("auto", True, False) gathers parent features from the previous
+        iteration's child features under WE continuity.
+        """
+        if not isinstance(fileSpecifier, ArrayWEDataset):
+            raise _not_ported("reading west.h5 files", "data/westh5.py reader")
+        if auxpath != "coord":
+            raise ValueError("an ArrayWEDataset holds its coordinates as 'coord'")
+        if dedup_coordinates not in (True, False, "auto"):
+            raise ValueError(
+                "dedup_coordinates must be True, False, or 'auto', got "
+                f"{dedup_coordinates!r}"
+            )
+        if dedup_coordinates != "auto":
+            dedup_coordinates = bool(dedup_coordinates)
+        self.dedup_coordinates = dedup_coordinates
+        self.modelName = modelName
+        if fileSpecifier.pcoord_ndim != pcoord_ndim:
+            raise ValueError(
+                f"dataset has pcoord_ndim={fileSpecifier.pcoord_ndim}, "
+                f"initialize was given {pcoord_ndim}"
+            )
+        self.fileList = ["<in-memory>"]
+        self.n_data_files = 1
+        self.pcoord_ndim = pcoord_ndim
+        self.pcoord_len = 2
+        self.auxpath = auxpath
+
+        if basis_pcoord_bounds is not None:
+            self.basis_pcoord_bounds = basis_pcoord_bounds
+        elif not _suppress_boundary_warning:
+            log.warning("No basis coord bounds provided to initialize().")
+        if target_pcoord_bounds is not None:
+            self.target_pcoord_bounds = target_pcoord_bounds
+        elif not _suppress_boundary_warning:
+            log.warning("No target coord bounds provided to initialize().")
+
+        if tau is None:
+            log.warning("No tau provided, defaulting to 1.")
+            tau = 1.0
+        self.tau = float(tau)
+
+        self.refPDBfile = refPDBfile
+        self.set_topology(refPDBfile)
+
+        if dim_reduce_method is None:
+            dim_reduce_method = "pca"
+        if dim_reduce_method in ("tica", "vamp", "batch-pca"):
+            raise _not_ported(f"dim_reduce_method={dim_reduce_method!r}",
+                              "TICA/VAMP")
+        if dim_reduce_method not in SUPPORTED_DIMREDUCE:
+            raise ValueError(f"dim_reduce_method must be one of {SUPPORTED_DIMREDUCE}")
+        self.dimReduceMethod = dim_reduce_method
+        if processCoordinates is not None:
+            self.processCoordinates = processCoordinates
+        self.use_weights_in_clustering = use_weights_in_clustering
+
+        self._dataset = fileSpecifier
+        self._features = None
+        self._raw_bins_cache = None
+        self._pc_masks_cache = None
+        self._dev_feats_cache = None
+        self._strat = None
+        self._bin_mapper = None
+        self._fluxMatrixParams = None
+        self.clusters = None
+        self.dtrajs = None
+        self.load_iter_data(1)
+        self.coordsExist = True
+
+    # ------------------------------------------------------- bounds & states
+    @property
+    def basis_pcoord_bounds(self):
+        return self._basis_pcoord_bounds
+
+    @basis_pcoord_bounds.setter
+    def basis_pcoord_bounds(self, bounds):
+        self._basis_pcoord_bounds = self._check_bounds(bounds)
+        self.basis_bin_centers = self._bin_centers_of_bounds(self._basis_pcoord_bounds)
+        self._invalidate_pcoord_caches()
+
+    @property
+    def target_pcoord_bounds(self):
+        return self._target_pcoord_bounds
+
+    @target_pcoord_bounds.setter
+    def target_pcoord_bounds(self, bounds):
+        self._target_pcoord_bounds = self._check_bounds(bounds)
+        self.target_bin_centers = self._bin_centers_of_bounds(self._target_pcoord_bounds)
+        self._invalidate_pcoord_caches()
+
+    def _check_bounds(self, bounds):
+        bounds = np.array(bounds, dtype=float)
+        if bounds.ndim == 1:
+            log.warning("1-D boundaries should be [[lower, upper]]; converting.")
+            bounds = bounds.reshape(1, 2)
+        if bounds.shape != (self.pcoord_ndim, 2):
+            raise ValueError(
+                f"Shape of bounds was {bounds.shape}, should've been "
+                f"({self.pcoord_ndim}, 2)"
+            )
+        if not np.all(bounds[:, 0] < bounds[:, 1]):
+            raise ValueError("A boundary has a lower bound larger than its upper bound")
+        return bounds
+
+    @staticmethod
+    def _bin_centers_of_bounds(bounds):
+        """Per-dim bin center: mean of finite bounds, else the finite one."""
+        centers = np.full(len(bounds), np.nan)
+        for i, (lo, hi) in enumerate(bounds):
+            if np.isfinite(lo) and np.isfinite(hi):
+                centers[i] = 0.5 * (lo + hi)
+            else:
+                centers[i] = lo if np.isfinite(lo) else hi
+        return centers
+
+    def is_WE_basis(self, pcoords):
+        """Segments whose pcoords lie inside the basis bounds (open)."""
+        from .utils import pcoord_in_bounds
+
+        return pcoord_in_bounds(pcoords, self.basis_pcoord_bounds[: self.pcoord_ndim])
+
+    def is_WE_target(self, pcoords):
+        from .utils import pcoord_in_bounds
+
+        return pcoord_in_bounds(pcoords, self.target_pcoord_bounds[: self.pcoord_ndim])
+
+    def _pc_masks(self):
+        """Basis/target membership of every segment's parent/child pcoord,
+        cached on the current feature arrays; ``overlap_p``/``overlap_c``
+        flag rows inside both regions (None when there are none)."""
+        feats = self._featurize_all()
+        cache = getattr(self, "_pc_masks_cache", None)
+        if cache is not None and cache[0] is feats:
+            return cache[1]
+        masks = dict(
+            basis_p=np.asarray(self.is_WE_basis(feats["pcoord0"]), dtype=bool),
+            basis_c=np.asarray(self.is_WE_basis(feats["pcoord1"]), dtype=bool),
+            target_p=np.asarray(self.is_WE_target(feats["pcoord0"]), dtype=bool),
+            target_c=np.asarray(self.is_WE_target(feats["pcoord1"]), dtype=bool),
+        )
+        for ov, a, b in (("overlap_p", "basis_p", "target_p"),
+                         ("overlap_c", "basis_c", "target_c")):
+            o = masks[a] & masks[b]
+            masks[ov] = o if o.any() else None
+        self._pc_masks_cache = (feats, masks)
+        return masks
+
+    def set_topology(self, topology):
+        """A dict of ``coords``/``nAtoms``/``coord_ndim`` (mdtraj
+        topologies are not supported by the port)."""
+        if not isinstance(topology, dict):
+            raise _not_ported("non-dict topologies (mdtraj)", "plugins and extended.py")
+        self.reference_coord = topology.get("coords")
+        self.nAtoms = topology["nAtoms"]
+        self.coord_ndim = topology["coord_ndim"]
+
+    # ----------------------------------------------------------------- data
+    def get_iterations(self):
+        """Populate maxIter / numSegments (reference ``_data.py:934-993``)."""
+        self.numSegments = self._dataset.numSegments
+        self.maxIter = self._dataset.maxIter
+
+    def load_iter_data(self, n_iter):
+        """Expose the reference's per-iteration attributes."""
+        d = self._dataset.iter_data(n_iter)
+        self.pcoord_len = self._dataset.pcoord_len
+        self.n_iter = n_iter
+        self.westList = d["west_idx"]
+        self.segindList = d["seg_idx"]
+        self.weightList = d["weights"]
+        self.nSeg = d["n_segs"]
+        self.pcoord0List = d["pcoord0"]
+        self.pcoord1List = d["pcoord1"]
+
+    def get_coordSet(self, last_iter, streaming=None, progress_bar=None):
+        """Build ``pcoordSet`` (reference ``_data.py:677-759``, streaming)."""
+        self.pcoordSet = np.concatenate(
+            [self._dataset.iter_data(i)["pcoord1"].copy()
+             for i in range(1, last_iter + 1)],
+            axis=0,
+        )
+        self.first_iter = 1
+        self.last_iter = last_iter
+
+    # ------------------------------------------------- dimensionality reduce
+    DEVICE_MOMENTS_MIN_DIM = 256
+    """Feature dimensionality from which the PCA second moments are f32
+    products on the device (combined across batches in f64)."""
+
+    def dimReduce(self, first_iter=1, first_rough_iter=None, last_iter=None,
+                  rough_stride=10, fine_stride=1, variance_cutoff=0.95,
+                  use_weights=True, progress_bar=None, device_moments=None):
+        """Fit the PCA transform from streamed exact moments (reference
+        ``_dimensionality.py:110-345``)."""
+        if last_iter is None:
+            last_iter = self.maxIter
+        if self.dimReduceMethod == "none":
+            self.ndim = int(self.coord_ndim * self.nAtoms)
+            self.coordinates = IdentityCoordinates()
+            return
+        acc = None
+        for i in range(first_iter, last_iter, fine_stride):
+            c = self._dataset.iter_child_coords(i)
+            if not c.shape[0]:
+                continue
+            feats = np.asarray(self.processCoordinates(c))
+            if acc is None:
+                on_device = (
+                    feats.shape[1] >= self.DEVICE_MOMENTS_MIN_DIM
+                    if device_moments is None else bool(device_moments)
+                )
+                acc = MomentAccumulator(
+                    feats.shape[1],
+                    dtype=np.float32 if on_device else np.float64,
+                    device=self.device,
+                )
+            acc.add(feats)
+        if acc is None:
+            raise ValueError(
+                f"No usable coordinates in iterations [{first_iter}, "
+                f"{last_iter}) at stride {fine_stride}; cannot fit the "
+                "dimensionality reduction."
+            )
+        self.coordinates = acc.finalize(variance_cutoff=variance_cutoff)
+        self.ndim = self.coordinates.n_components
+
+    def reduceCoordinates(self, coords):
+        """processCoordinates then the fitted transform."""
+        return self.coordinates.transform(self.processCoordinates(coords))
+
+    # ------------------------------------------------------------- features
+    FEATURE_CHUNK = 8192
+    """Frames per featurization chunk (last chunk zero-padded)."""
+
+    def _featurize_all(self, force=False):
+        return featurize_all(self, force=force)
+
+    def _device_row_feats(self, need_parent=True):
+        return device_row_feats(self, need_parent=need_parent)
+
+    # ------------------------------------------------------------ clustering
+    def cluster_coordinates(self, n_clusters, streaming=False,
+                            first_cluster_iter=None, use_ray=False,
+                            stratified=True, iters_to_use=None,
+                            store_validation_model=False, progress_bar=None,
+                            random_state=None, **_cluster_args):
+        """Stratified clustering (reference ``_clustering.py:142-195``)."""
+        if not stratified:
+            raise _not_ported("aggregated clustering", "aggregated clustering")
+        if store_validation_model:
+            raise _not_ported("block validation", "validation and bootstrap")
+        if random_state is not None:
+            self._cluster_seed = int(random_state)
+        self.clustering_method = "stratified"
+        self.cluster_stratified(
+            n_clusters=n_clusters, first_cluster_iter=first_cluster_iter,
+            iters_to_use=iters_to_use, **_cluster_args,
+        )
+
+    def _resolve_iters(self, iters_to_use, first_cluster_iter):
+        if iters_to_use is not None and first_cluster_iter is not None:
+            log.error(
+                "Conflicting parameters -- iters_to_use OR first_cluster_iter, not both."
+            )
+        if iters_to_use is None:
+            first = first_cluster_iter if first_cluster_iter is not None else 1
+            iters_to_use = range(first, self.maxIter)
+        return list(iters_to_use)
+
+    def cluster_stratified(self, n_clusters, streaming=True,
+                           first_cluster_iter=None, use_ray=True,
+                           bin_iteration=2, iters_to_use=None,
+                           user_bin_mapper=None, progress_bar=None,
+                           scan_small_batches=False, **_cluster_args):
+        """Per-WE-bin stratified clustering (reference ``_clustering.py:525-918``).
+
+        Accumulates iterations until every seen WE bin has >= n_clusters
+        segments (basis/target segments excluded), seeds and updates each
+        bin's centers, remaps never-filled bins to the nearest filled bin,
+        then discretizes every row. ``scan_small_batches=True`` runs every
+        non-seeding fill batch through the device scan (the device numerics
+        family) instead of host numpy updates for small batches.
+        """
+        if user_bin_mapper is None:
+            raise _not_ported("bin mappers read from a west.h5", "data/westh5.py reader")
+        bin_mapper = user_bin_mapper
+        self._bin_mapper = bin_mapper
+        self._raw_bins_cache = None
+        iters_to_use = self._resolve_iters(iters_to_use, first_cluster_iter)
+        feats = self._featurize_all()
+        strat = StratifiedKmeans(
+            n_bins=bin_mapper.nbins, k_per_bin=n_clusters,
+            n_features=feats["child"].shape[1], seed=self._cluster_seed,
+            device=self.device,
+        )
+        all_filled = set()
+
+        # Training bins come from parent pcoords; basis/target and
+        # bad-coordinate (weight 0) segments are excluded
+        masks = self._pc_masks()
+        keep_all = ~(masks["target_p"] | masks["basis_p"])
+        keep_all &= feats["weights"] > 0
+        kept_rows_all = np.flatnonzero(keep_all)
+        kept_bins_all = self._raw_we_bins()[0][kept_rows_all]
+
+        batches, delegated = _discretization.build_batch_plan(
+            bin_mapper, iters_to_use, n_clusters, kept_rows_all, kept_bins_all,
+            feats["offsets"],
+        )
+        _discretization.run_streaming_batches(
+            self, strat, feats, batches, delegated, bin_mapper, all_filled,
+            iters_to_use, scan_small_batches=scan_small_batches,
+        )
+        for ub in np.setdiff1d(np.arange(bin_mapper.nbins), sorted(all_filled)):
+            remap = find_nearest_bin(bin_mapper, int(ub), sorted(all_filled))
+            strat.set_remap(int(ub), remap)
+            log.debug(f"Remapped {ub} to {remap}")
+
+        self._strat = strat
+        self.clusters = strat
+        # The nominal total (reference ``_clustering.py:742``); never-visited
+        # clusters are cleaned away in organize_fluxMatrix
+        self.n_clusters = n_clusters * bin_mapper.nbins
+        self.launch_discretization()
+
+    # --------------------------------------------------------- discretization
+    def launch_discretization(self, progress_bar=None):
+        """Discretize every parent and child row on the model's device."""
+        return _discretization.launch_discretization(self)
+
+    def _invalidate_pcoord_caches(self):
+        self._raw_bins_cache = None
+        self._pc_masks_cache = None
+
+    def _raw_we_bins(self):
+        """Un-remapped WE bin of every segment's parent/child pcoord."""
+        if getattr(self, "_raw_bins_cache", None) is None:
+            feats = self._featurize_all()
+            self._raw_bins_cache = (
+                self._bin_mapper.assign(np.nan_to_num(feats["pcoord0"])),
+                self._bin_mapper.assign(np.nan_to_num(feats["pcoord1"])),
+            )
+        return self._raw_bins_cache
+
+    def _store_dtrajs(self, parent_idx, child_idx):
+        offsets = self._features["offsets"]
+        spans = [(offsets[i], offsets[i + 1]) for i in range(len(offsets) - 1)]
+        self.dtrajs = [child_idx[a:b] for a, b in spans]
+        self.pair_dtrajs = [
+            np.stack([parent_idx[a:b], child_idx[a:b]], axis=1) for a, b in spans
+        ]
+        self._parent_idx = parent_idx
+        self._child_idx = child_idx
+
+    # ------------------------------------------------------------ flux matrix
+    def get_fluxMatrix(self, n_lag, first_iter=1, last_iter=None,
+                       iters_to_use=None, use_ray=False, result_batch_size=5,
+                       progress_bar=None):
+        """Weighted lag-0 flux matrix (reference ``_fluxmatrix.py:166-345``)."""
+        return _fluxmatrix.get_flux_matrix(
+            self, n_lag, first_iter=first_iter, last_iter=last_iter,
+            iters_to_use=iters_to_use,
+        )
+
+    def organize_fluxMatrix(self, use_ray=False, progress_bar=None,
+                            incremental=True, max_passes=10, **args):
+        """Clean the flux matrix (reference ``_fluxmatrix.py:347-415``)."""
+        if args:
+            log.warning(f"organize_fluxMatrix ignoring unknown options {sorted(args)}")
+        return _cleaning.organize_stratified(
+            self, max_passes=max_passes, incremental=incremental
+        )
+
+    # ------------------------------------------------------- cluster centers
+    def get_cluster_centers(self):
+        """Mean/min/max child-pcoord per cluster; returns the pcoord-sort
+        permutation (reference ``_clustering.py:1528-1599``)."""
+        from .structures import get_cluster_centers
+
+        return get_cluster_centers(self)
+
+    def update_sorted_cluster_centers(self):
+        """Reference ``_clustering.py:1601-1611``."""
+        bin_centers = self.targetRMSD_centers[:, 0].copy()
+        bin_centers[self.indTargets] = self.target_bin_centers[0]
+        bin_centers[self.indBasis] = self.basis_bin_centers[0]
+        self.all_centers = bin_centers
+        self.sorted_centers = np.argsort(bin_centers)
+
+    def update_cluster_structures(self, build_pcoord_cache=False):
+        """Map each cluster to its member structures, weights and provenance
+        (reference ``_clustering.py:1398-1526``)."""
+        from .structures import update_cluster_structures
+
+        return update_cluster_structures(self, build_pcoord_cache=build_pcoord_cache)
+
+    # -------------------------------------------------------------- analysis
+    def get_Tmatrix(self):
+        self.Tmatrix = linalg.tmatrix_from_flux(
+            self.fluxMatrix, self.indTargets, self.indBasis, self.nBins
+        )
+
+    def get_steady_state(self, flux_fractional_convergence=1e-4, max_iters=10):
+        self.pSS, _flux = linalg.steady_state_refined(
+            self.Tmatrix, self.indTargets, self.indBasis, self.nBins,
+            self.tau * (self.n_lag + 1),
+            flux_fractional_convergence=flux_fractional_convergence,
+            max_iters=max_iters,
+        )
+
+    def get_steady_state_target_flux(self, pSS=None, _set=True):
+        import scipy.sparse as sparse
+
+        from .utils import is_connected
+
+        if not is_connected(sparse.csr_matrix(self.Tmatrix), self.indBasis,
+                            self.indTargets, directed=True):
+            log.critical(
+                "There is no path from the basis to the target, so no MFPT can "
+                "be calculated."
+            )
+            return -1
+        if pSS is None:
+            pSS = np.squeeze(np.asarray(self.pSS))
+        lagtime = self.tau * (self.n_lag + 1)
+        J = linalg.target_flux(
+            np.asarray(self.Tmatrix), pSS, self.indTargets, self.nBins, lagtime
+        )
+        if not _set:
+            return J
+        self.lagtime = lagtime
+        self.JtargetSS = J
+
+    # ------------------------------------------------------------- pipeline
+    def build_analyze_model(self, file_paths, ref_struct, modelName,
+                            basis_pcoord_bounds, target_pcoord_bounds,
+                            dimreduce_method, tau, n_clusters, ray_kwargs={},
+                            max_coord_iter=-1, stratified=True, streaming=True,
+                            use_ray=False, fluxmatrix_iters=[1, -1],
+                            fluxmatrix_iters_to_use=None,
+                            cross_validation_groups=2,
+                            cross_validation_blocks=4, show_live_display=True,
+                            allow_validation_failure=False, step_kwargs={},
+                            progress_bar=None, profile_dir=None,
+                            device_pipeline=False, dedup_coordinates="auto"):
+        """One-shot build + analysis (reference ``msm_we.py:588-882``).
+
+        ``file_paths`` is an :class:`ArrayWEDataset`. The port runs the
+        device pipeline only (``device_pipeline=True``), stratified, lag 0,
+        without cross-validation; other configurations raise
+        ``NotImplementedError``. Stage wall-clocks land in
+        ``self.stage_timings``.
+        """
+        from .tracing import StageTimer, live_stage_display
+
+        if not device_pipeline:
+            raise _not_ported("the host-predict build (device_pipeline=False)",
+                              "host-predict discretization route")
+        if cross_validation_groups:
+            raise _not_ported("block validation", "validation and bootstrap")
+        if not stratified:
+            raise _not_ported("aggregated clustering", "aggregated clustering")
+        if profile_dir is not None:
+            raise _not_ported("profiler traces (profile_dir)", "tracing")
+        timer = StageTimer()
+        self.stage_timings = timer
+        with live_stage_display(timer, enabled=show_live_display):
+            self._run_build_pipeline(
+                timer, file_paths=file_paths, ref_struct=ref_struct,
+                modelName=modelName, basis_pcoord_bounds=basis_pcoord_bounds,
+                target_pcoord_bounds=target_pcoord_bounds,
+                dimreduce_method=dimreduce_method, tau=tau,
+                n_clusters=n_clusters, streaming=streaming,
+                fluxmatrix_iters=fluxmatrix_iters,
+                fluxmatrix_iters_to_use=fluxmatrix_iters_to_use,
+                step_kwargs=step_kwargs, max_coord_iter=max_coord_iter,
+                dedup_coordinates=dedup_coordinates,
+            )
+        log.info("\n" + timer.report())
+        return self
+
+    def _run_build_pipeline(self, timer, *, file_paths, ref_struct, modelName,
+                            basis_pcoord_bounds, target_pcoord_bounds,
+                            dimreduce_method, tau, n_clusters, streaming,
+                            fluxmatrix_iters, fluxmatrix_iters_to_use,
+                            step_kwargs, max_coord_iter, dedup_coordinates):
+        with timer.stage("Model initialization"):
+            self.initialize(
+                file_paths, ref_struct, modelName,
+                basis_pcoord_bounds=basis_pcoord_bounds,
+                target_pcoord_bounds=target_pcoord_bounds,
+                dim_reduce_method=dimreduce_method, tau=tau,
+                **{"dedup_coordinates": dedup_coordinates,
+                   **step_kwargs.get("initialize", {})},
+            )
+        with timer.stage("Loading iterations"):
+            self.get_iterations()
+            timer.set_note(f"{self.maxIter} iterations")
+        with timer.stage("Loading coordinates"):
+            self.get_coordSet(self.maxIter if max_coord_iter == -1 else max_coord_iter)
+        with timer.stage("Dimensionality reduction"):
+            self.dimReduce(**step_kwargs.get("dimReduce", {}))
+            timer.set_note(f"method={self.dimReduceMethod}, ndim={self.ndim}")
+        with timer.stage("Clustering"):
+            self.cluster_coordinates(
+                n_clusters=n_clusters, streaming=streaming, stratified=True,
+                **step_kwargs.get("clustering", {}),
+            )
+        fm_iters = list(fluxmatrix_iters)
+        if fm_iters[1] == -1:
+            fm_iters[1] = self.maxIter
+        with timer.stage("Flux matrix"):
+            self.get_fluxMatrix(
+                0, first_iter=fm_iters[0], last_iter=fm_iters[1],
+                iters_to_use=fluxmatrix_iters_to_use,
+                **step_kwargs.get("fluxmatrix", {}),
+            )
+        original_clusters = self.fluxMatrixRaw.shape[0]
+        with timer.stage("Cleaning"):
+            self.organize_fluxMatrix(**step_kwargs.get("organize", {}))
+            timer.set_note(
+                f"{original_clusters} -> {self.fluxMatrix.shape[0]} clusters"
+            )
+        with timer.stage("Transition matrix"):
+            self.get_Tmatrix()
+        with timer.stage("Steady-state distribution"):
+            self.get_steady_state()
+        with timer.stage("Steady-state target flux"):
+            self.get_steady_state_target_flux()
+            timer.set_note(f"JtargetSS={self.JtargetSS:.2e}")

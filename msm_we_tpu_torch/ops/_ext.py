@@ -1,0 +1,125 @@
+"""Build and bind the CUDA kernel library of ``msm_we_tpu_torch/csrc``.
+
+The sources are compiled by ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface and loaded with :mod:`ctypes` (no PyTorch headers,
+so a build takes seconds). The library is built at first use into
+``msm_we_tpu_torch/_build/``, named by a hash of the sources and the
+compiler flags, and moved into place with an atomic rename so that two
+processes never load half a library. Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+# argtypes of each extern "C" entry point in csrc/stratified_assign.cu
+_SIGNATURES = {
+    "msm_transform_assign_child": [_P] * 9 + [_I] * 5 + [_P, _P, _P],
+    "msm_transform_assign": [_P] * 9 + [_I] + [_P] * 5 + [_I] * 5 + [_P] * 4,
+    "msm_assign_flux": [_P] * 9 + [_I] + [_P] * 4 + [_I] * 4 + [_P] * 4,
+    "msm_pair_assign": [_P] * 12 + [_I] * 5 + [_P] * 3,
+}
+
+_lock = threading.Lock()
+_lib = None
+build_info = {}  # path, seconds, compiler log of the library in use
+
+
+def _sources():
+    return sorted(
+        p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh")
+    )
+
+
+def _nvcc():
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [shutil.which("nvcc")]
+    if cuda_home:
+        candidates.append(os.path.join(cuda_home, "bin", "nvcc"))
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked on PATH, in $CUDA_HOME/bin and "
+        "/usr/local/cuda/bin); the CUDA kernels cannot be built"
+    )
+
+
+def library_path():
+    """Path of the library for the current sources (built or not)."""
+    h = hashlib.sha256()
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libmsm_we_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _compile(target):
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                "nvcc failed building the CUDA kernels:\n"
+                + " ".join(cmd) + "\n" + res.stdout + res.stderr
+            )
+        os.replace(tmp, target)  # atomic: readers see all or nothing
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return time.perf_counter() - t0, res.stdout + res.stderr
+
+
+def library():
+    """The loaded kernel library, building it first if needed.
+
+    Raises when ``nvcc`` is missing or the build fails; there is no
+    fallback.
+    """
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        path = library_path()
+        seconds, log = 0.0, ""
+        if not path.exists():
+            seconds, log = _compile(path)
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        build_info.update(path=str(path), seconds=seconds, log=log)
+        _lib = lib
+        return lib
+
+
+def check(err, name):
+    """Raise if an entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")

@@ -1,0 +1,445 @@
+"""Fused stratified assignment kernels and their plain PyTorch versions.
+
+Counterpart of ``msm_we_tpu/ops/pallas_kernels.py``. Each wrapper is named
+for its Pallas kernel and launches one entry point of
+``csrc/stratified_assign.cu`` on CUDA tensors:
+
+==========================  ==============================================
+``transform_assign_child``  H1 ``fused_transform_assign_child``
+``transform_assign``        H2 ``fused_transform_assign``
+``assign_flux``             H3 ``fused_assign_flux``
+``pair_assign``             H4 ``_assign_call``
+==========================  ==============================================
+
+What the Pallas wrappers needed for Mosaic is gone: no (n, 1) columns, no
+128-padding, no one-hot flux matmul. Two differences from the Pallas
+kernels are deliberate, so that one family serves production:
+
+* scores are the production ``|c|^2 - 2 x.c`` (``ops/kmeans.py``), or
+  ``c2adj - 2 (x P).c`` with the PCA centering folded into ``c2adj`` for
+  the transform entry points -- never ``|x|^2 - 2 x.c + |c|^2``;
+* the parent target override ``target_p`` is applied (flux order: before
+  basis, so basis wins; predict order: last, so target wins), as
+  ``parallel/sharded.py::_apply_overrides`` does.
+
+The bank must be compact (valid centers first, in global-id order), so the
+row index of the winning center is its global cluster id.
+
+A wrapper given CPU tensors runs the ``*_plain`` version beside it (dense
+masked scores, ``argmin``, ``_apply_overrides``, ``index_add_``). Given CUDA
+tensors it checks device, dtype, shape and contiguity, launches the kernel
+on the current stream without synchronising, and raises on a launch error.
+There is no fallback between the two. Each wrapper counts its kernel
+launches in its ``launches`` attribute.
+"""
+from __future__ import annotations
+
+import torch
+
+from ._ext import check, library
+from .kmeans import masked_scores
+
+__all__ = [
+    "transform_assign_child",
+    "transform_assign_child_plain",
+    "transform_assign",
+    "transform_assign_plain",
+    "assign_flux",
+    "assign_flux_plain",
+    "pair_assign",
+    "pair_assign_plain",
+    "c2adj",
+    "launch_counts",
+    "reset_launch_counts",
+]
+
+MAX_FEATURES = 128  # register-resident feature rows in the kernel
+_ORDERS = {None: 0, "flux": 1, "predict": 2}
+
+
+def c2adj(mean, proj, centers):
+    """``|c|^2 + 2 (mu P).c``: the centering of ``(x - mu) P`` folded into
+    the bank, so a kernel scores raw rows as ``c2adj - 2 (x P).c``."""
+    bias = mean @ proj
+    return (centers * centers).sum(1) + 2.0 * (centers @ bias)
+
+
+def _argmin(X, bins, centers, center_bin, valid, c2=None):
+    return torch.argmin(
+        masked_scores(X, bins, centers, center_bin, valid, c2=c2), dim=1
+    ).to(torch.int32)
+
+
+def _overrides(pidx, cidx, basis_p, basis_c, target_c, n_states, target_p,
+               predict_order):
+    from ..step import _apply_overrides
+
+    return _apply_overrides(
+        pidx, cidx, basis_p, basis_c, target_c, n_states,
+        target_p=target_p, predict_order=predict_order,
+    )
+
+
+def _flux(pidx, cidx, w, n_states):
+    from ..step import _scatter_flux
+
+    return _scatter_flux(pidx, cidx, w, n_states)
+
+
+# ------------------------------------------------------------------ plain
+
+
+def transform_assign_child_plain(raw, bins, basis, target, mean, proj,
+                                 centers, center_bin, valid, n_states,
+                                 emit_features=False):
+    """Plain H1: ``g = raw P``, masked nearest center on ``c2adj - 2 g.C``,
+    target then basis override (basis wins). Returns ``(idx, g or None)``."""
+    g = raw @ proj
+    idx = _argmin(g, bins, centers, center_bin, valid,
+                  c2=c2adj(mean, proj, centers))
+    if target is not None:
+        idx = torch.where(target, n_states - 1, idx)
+    if basis is not None:
+        idx = torch.where(basis, n_states - 2, idx)
+    return idx.to(torch.int32), (g if emit_features else None)
+
+
+def transform_assign_plain(raw_p, raw_c, pbins, cbins, w, basis_p, basis_c,
+                           target_c, mean, proj, centers, center_bin, valid,
+                           n_states, target_p=None, with_flux=True):
+    """Plain H2: both row sets through the transform, flux-order overrides,
+    and the (S, S) flux of ``w`` (in the dtype of ``w``) when
+    ``with_flux``. Returns ``(pidx, cidx, fm or None)``."""
+    a = c2adj(mean, proj, centers)
+    pidx = _argmin(raw_p @ proj, pbins, centers, center_bin, valid, c2=a)
+    cidx = _argmin(raw_c @ proj, cbins, centers, center_bin, valid, c2=a)
+    pidx, cidx = _overrides(pidx, cidx, basis_p, basis_c, target_c, n_states,
+                            target_p, predict_order=False)
+    fm = _flux(pidx, cidx, w, n_states) if with_flux else None
+    return pidx, cidx, fm
+
+
+def assign_flux_plain(fp, fc, pbins, cbins, w, basis_p, basis_c, target_c,
+                      centers, center_bin, valid, n_states, target_p=None):
+    """Plain H3: assign both feature sets, flux-order overrides, flux.
+    Returns ``(pidx, cidx, fm)``."""
+    pidx = _argmin(fp, pbins, centers, center_bin, valid)
+    cidx = _argmin(fc, cbins, centers, center_bin, valid)
+    pidx, cidx = _overrides(pidx, cidx, basis_p, basis_c, target_c, n_states,
+                            target_p, predict_order=False)
+    return pidx, cidx, _flux(pidx, cidx, w, n_states)
+
+
+def pair_assign_plain(fp, fc, pbins, cbins, centers, center_bin, valid,
+                      n_states=None, basis_p=None, basis_c=None,
+                      target_p=None, target_c=None, order=None):
+    """Plain H4: nearest valid same-bin center ids, optionally followed by
+    the override epilogue (``order`` None, ``"flux"`` or ``"predict"``).
+    With ``fp=None`` only the ``fc`` rows are assigned and ``cidx`` alone
+    is returned; otherwise ``(pidx, cidx)``."""
+    _check_order(order, n_states)
+    cidx = _argmin(fc, cbins, centers, center_bin, valid)
+    pidx = None if fp is None else _argmin(
+        fp, pbins, centers, center_bin, valid
+    )
+    if order is not None:
+        if pidx is None:
+            B, T = n_states - 2, n_states - 1
+            if order == "predict":
+                cidx = _where(basis_c, B, cidx)
+                cidx = _where(target_c, T, cidx)
+            else:
+                cidx = _where(target_c, T, cidx)
+                cidx = _where(basis_c, B, cidx)
+        else:
+            pidx, cidx = _overrides(
+                pidx, cidx, basis_p, basis_c, target_c, n_states, target_p,
+                predict_order=order == "predict",
+            )
+    return cidx if pidx is None else (pidx, cidx)
+
+
+def _where(mask, value, idx):
+    return idx if mask is None else torch.where(mask, value, idx)
+
+
+def _check_order(order, n_states):
+    if order not in _ORDERS:
+        raise ValueError(f"order must be None, 'flux' or 'predict', got {order!r}")
+    if order is not None and n_states is None:
+        raise ValueError("overrides need n_states")
+
+
+# ----------------------------------------------------------------- kernels
+
+
+def _on_cuda(t, name):
+    """True for a CUDA tensor, False for a CPU one; anything else raises."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name} is on unsupported device {t.device}")
+
+
+def _check(t, name, dtype, shape, device, optional=False):
+    if t is None:
+        if optional:
+            return
+        raise ValueError(f"{name} is required")
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_bank(centers, center_bin, valid, F, device):
+    if centers.dim() != 2 or centers.shape[1] != F:
+        raise ValueError(f"centers must be (K, {F}), got {tuple(centers.shape)}")
+    K = centers.shape[0]
+    if K == 0:
+        raise ValueError("the center bank is empty")
+    _check(centers, "centers", torch.float32, (K, F), device)
+    _check(center_bin, "center_bin", torch.int32, (K,), device)
+    _check(valid, "valid", torch.bool, (K,), device)
+    return K
+
+
+def _check_sizes(n, F):
+    if F > MAX_FEATURES:
+        raise NotImplementedError(
+            f"the CUDA kernel holds at most {MAX_FEATURES} features per row, got {F}"
+        )
+    if n >= 2**31:
+        raise ValueError(f"{n} rows exceed the kernel's 32-bit row index")
+
+
+def _rows(n, device, names_values, dtype, optional=()):
+    for name, t in names_values:
+        _check(t, name, dtype, (n,), device, optional=name in optional)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _check_states(n_states):
+    # The two override states follow the regular cluster ids
+    if n_states is None or n_states < 3:
+        raise ValueError(f"n_states must be >= 3, got {n_states}")
+
+
+def transform_assign_child(raw, bins, basis, target, mean, proj, centers,
+                           center_bin, valid, n_states, emit_features=False):
+    """H1 (``fused_transform_assign_child``): child rows only. ``raw`` (N, D)
+    f32 -> ``g = raw P`` -> masked nearest center on ``c2adj - 2 g.C`` ->
+    target then basis override. Returns ``(idx int32 (N,), g (N, F) or
+    None)``; ``g`` excludes the centering (``g - mean P`` are the features).
+    """
+    if not _on_cuda(raw, "raw"):
+        return transform_assign_child_plain(
+            raw, bins, basis, target, mean, proj, centers, center_bin, valid,
+            n_states, emit_features=emit_features,
+        )
+    dev = raw.device
+    N, D = raw.shape
+    F = proj.shape[1]
+    _check(raw, "raw", torch.float32, (N, D), dev)
+    _check(proj, "proj", torch.float32, (D, F), dev)
+    _check(mean, "mean", torch.float32, (D,), dev)
+    K = _check_bank(centers, center_bin, valid, F, dev)
+    _rows(N, dev, [("bins", bins)], torch.int32)
+    _rows(N, dev, [("basis", basis), ("target", target)], torch.bool,
+          optional=("basis", "target"))
+    _check_sizes(N, F)
+    _check_states(n_states)
+    idx = torch.empty(N, dtype=torch.int32, device=dev)
+    feats = torch.empty((N, F), dtype=torch.float32, device=dev) if emit_features else None
+    if N == 0:
+        return idx, feats
+    a = c2adj(mean, proj, centers).contiguous()
+    with torch.cuda.device(dev):  # launch in the tensors' device context
+        err = library().msm_transform_assign_child(
+            _ptr(raw), _ptr(bins), _ptr(basis), _ptr(target), _ptr(proj),
+            _ptr(centers), _ptr(a), _ptr(center_bin), _ptr(valid),
+            N, D, F, K, n_states, _ptr(idx), _ptr(feats), _stream(dev),
+        )
+    check(err, "transform_assign_child")
+    transform_assign_child.launches += 1
+    return idx, feats
+
+
+def transform_assign(raw_p, raw_c, pbins, cbins, w, basis_p, basis_c,
+                     target_c, mean, proj, centers, center_bin, valid,
+                     n_states, target_p=None, with_flux=True):
+    """H2 (``fused_transform_assign``): parent and child raw rows through the
+    transform, masked assignment, flux-order overrides (``target_p`` before
+    basis), and with ``with_flux`` the (S, S) flux of ``w`` accumulated in
+    the dtype of ``w`` (f32 or f64). Returns ``(pidx, cidx, fm or None)``.
+    """
+    if not _on_cuda(raw_c, "raw_c"):
+        return transform_assign_plain(
+            raw_p, raw_c, pbins, cbins, w, basis_p, basis_c, target_c, mean,
+            proj, centers, center_bin, valid, n_states, target_p=target_p,
+            with_flux=with_flux,
+        )
+    dev = raw_c.device
+    N, D = raw_c.shape
+    F = proj.shape[1]
+    _check(raw_p, "raw_p", torch.float32, (N, D), dev)
+    _check(raw_c, "raw_c", torch.float32, (N, D), dev)
+    _check(proj, "proj", torch.float32, (D, F), dev)
+    _check(mean, "mean", torch.float32, (D,), dev)
+    K = _check_bank(centers, center_bin, valid, F, dev)
+    _rows(N, dev, [("pbins", pbins), ("cbins", cbins)], torch.int32)
+    _rows(N, dev, [("basis_p", basis_p), ("basis_c", basis_c),
+                   ("target_c", target_c), ("target_p", target_p)],
+          torch.bool, optional=("target_p",))
+    fm = None
+    if with_flux:
+        if w is None or w.dtype not in (torch.float32, torch.float64):
+            raise TypeError("w must be a float32 or float64 tensor")
+        _check(w, "w", w.dtype, (N,), dev)
+        fm = torch.zeros((n_states, n_states), dtype=w.dtype, device=dev)
+    _check_sizes(N, F)
+    _check_states(n_states)
+    pidx = torch.empty(N, dtype=torch.int32, device=dev)
+    cidx = torch.empty(N, dtype=torch.int32, device=dev)
+    if N == 0:
+        return pidx, cidx, fm
+    a = c2adj(mean, proj, centers).contiguous()
+    with torch.cuda.device(dev):  # launch in the tensors' device context
+        err = library().msm_transform_assign(
+            _ptr(raw_p), _ptr(raw_c), _ptr(pbins), _ptr(cbins), _ptr(basis_p),
+            _ptr(basis_c), _ptr(target_p), _ptr(target_c),
+            _ptr(w) if with_flux else None,
+            int(with_flux and w.dtype == torch.float64),
+            _ptr(proj), _ptr(centers), _ptr(a), _ptr(center_bin), _ptr(valid),
+            N, D, F, K, n_states, _ptr(pidx), _ptr(cidx), _ptr(fm), _stream(dev),
+        )
+    check(err, "transform_assign")
+    transform_assign.launches += 1
+    return pidx, cidx, fm
+
+
+def assign_flux(fp, fc, pbins, cbins, w, basis_p, basis_c, target_c,
+                centers, center_bin, valid, n_states, target_p=None):
+    """H3 (``fused_assign_flux``): features in, parent and child masked
+    assignment, flux-order overrides (``target_p`` before basis), and the
+    (S, S) flux of ``w`` in its dtype. Returns ``(pidx, cidx, fm)``."""
+    if not _on_cuda(fc, "fc"):
+        return assign_flux_plain(
+            fp, fc, pbins, cbins, w, basis_p, basis_c, target_c, centers,
+            center_bin, valid, n_states, target_p=target_p,
+        )
+    dev = fc.device
+    N, F = fc.shape
+    _check(fp, "fp", torch.float32, (N, F), dev)
+    _check(fc, "fc", torch.float32, (N, F), dev)
+    K = _check_bank(centers, center_bin, valid, F, dev)
+    _rows(N, dev, [("pbins", pbins), ("cbins", cbins)], torch.int32)
+    _rows(N, dev, [("basis_p", basis_p), ("basis_c", basis_c),
+                   ("target_c", target_c), ("target_p", target_p)],
+          torch.bool, optional=("target_p",))
+    if w is None or w.dtype not in (torch.float32, torch.float64):
+        raise TypeError("w must be a float32 or float64 tensor")
+    _check(w, "w", w.dtype, (N,), dev)
+    _check_sizes(N, F)
+    _check_states(n_states)
+    pidx = torch.empty(N, dtype=torch.int32, device=dev)
+    cidx = torch.empty(N, dtype=torch.int32, device=dev)
+    fm = torch.zeros((n_states, n_states), dtype=w.dtype, device=dev)
+    if N == 0:
+        return pidx, cidx, fm
+    c2 = (centers * centers).sum(1).contiguous()
+    with torch.cuda.device(dev):  # launch in the tensors' device context
+        err = library().msm_assign_flux(
+            _ptr(fp), _ptr(fc), _ptr(pbins), _ptr(cbins), _ptr(basis_p),
+            _ptr(basis_c), _ptr(target_p), _ptr(target_c), _ptr(w),
+            int(w.dtype == torch.float64), _ptr(centers), _ptr(c2),
+            _ptr(center_bin), _ptr(valid), N, F, K, n_states,
+            _ptr(pidx), _ptr(cidx), _ptr(fm), _stream(dev),
+        )
+    check(err, "assign_flux")
+    assign_flux.launches += 1
+    return pidx, cidx, fm
+
+
+def pair_assign(fp, fc, pbins, cbins, centers, center_bin, valid,
+                n_states=None, basis_p=None, basis_c=None, target_p=None,
+                target_c=None, order=None):
+    """H4 (``_assign_call``): nearest valid same-bin center ids for parent
+    and child feature rows, plus an optional override epilogue (``order``
+    None, ``"flux"`` or ``"predict"``; masks may be None). ``fp=None``
+    assigns the ``fc`` rows alone and returns ``cidx``; otherwise returns
+    ``(pidx, cidx)``, int32."""
+    if not _on_cuda(fc, "fc"):
+        return pair_assign_plain(
+            fp, fc, pbins, cbins, centers, center_bin, valid,
+            n_states=n_states, basis_p=basis_p, basis_c=basis_c,
+            target_p=target_p, target_c=target_c, order=order,
+        )
+    _check_order(order, n_states)
+    dev = fc.device
+    N, F = fc.shape
+    pair = fp is not None
+    _check(fc, "fc", torch.float32, (N, F), dev)
+    _rows(N, dev, [("cbins", cbins)], torch.int32)
+    masks = [("basis_c", basis_c), ("target_c", target_c)]
+    if pair:
+        _check(fp, "fp", torch.float32, (N, F), dev)
+        _rows(N, dev, [("pbins", pbins)], torch.int32)
+        masks += [("basis_p", basis_p), ("target_p", target_p)]
+    elif basis_p is not None or target_p is not None or pbins is not None:
+        raise ValueError("parent bins/masks given without parent rows")
+    _rows(N, dev, masks, torch.bool, optional=[m for m, _ in masks])
+    K = _check_bank(centers, center_bin, valid, F, dev)
+    _check_sizes(N, F)
+    if order is not None:
+        _check_states(n_states)
+    cidx = torch.empty(N, dtype=torch.int32, device=dev)
+    pidx = torch.empty(N, dtype=torch.int32, device=dev) if pair else None
+    if N > 0:
+        c2 = (centers * centers).sum(1).contiguous()
+        with torch.cuda.device(dev):  # launch in the tensors' device context
+            err = library().msm_pair_assign(
+                _ptr(fp), _ptr(fc), _ptr(pbins), _ptr(cbins),
+                _ptr(basis_p), _ptr(basis_c), _ptr(target_p), _ptr(target_c),
+                _ptr(centers), _ptr(c2), _ptr(center_bin), _ptr(valid),
+                N, F, K, n_states or 0, _ORDERS[order],
+                _ptr(pidx), _ptr(cidx), _stream(dev),
+            )
+        check(err, "pair_assign")
+        pair_assign.launches += 1
+    return cidx if not pair else (pidx, cidx)
+
+
+KERNELS = {
+    "transform_assign_child": transform_assign_child,
+    "transform_assign": transform_assign,
+    "assign_flux": assign_flux,
+    "pair_assign": pair_assign,
+}
+for _fn in KERNELS.values():
+    _fn.launches = 0
+
+
+def reset_launch_counts():
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts():
+    return {name: fn.launches for name, fn in KERNELS.items()}

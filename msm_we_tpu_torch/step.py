@@ -1,0 +1,174 @@
+"""The single-device haMSM step: assign, override, scatter flux, steady state.
+
+Counterpart of the single-device part of ``msm_we_tpu/parallel/sharded.py``
+(``_raw_pair_assign``, ``_apply_overrides``, ``_assign_overridden``,
+``_discretize_and_flux``, ``_scatter_flux``, ``fused_step_single``,
+``steady_state_from_flux``, and the one-device forms of
+``build_sharded_pair_assign`` / ``build_sharded_single_assign``). One
+device replaces the ('data', 'model') mesh, so there is no argmin combine
+and no psum. The assignment and flux go through the kernels of
+``ops/stratified_assign.py`` on CUDA tensors and their plain versions on
+CPU tensors.
+
+The center bank must be compact (valid centers first, in global-id order):
+the row index of the winning center is its global cluster id.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .ops.stratified_assign import assign_flux, pair_assign
+
+__all__ = [
+    "fused_step_single",
+    "steady_state_from_flux",
+    "pair_assign_predict",
+    "single_assign_predict",
+]
+
+
+def _apply_overrides(pidx, cidx, basis_p, basis_c, target_c, n_states,
+                     target_p=None, predict_order=False):
+    """Basis/target overrides. ``predict_order`` (the reference's predict,
+    used for dtrajs): target is checked last, so target wins rows inside
+    both regions. Flux order (the reference's flux build): end-in-target,
+    then start-in-target (``target_p``), then basis for both ends, so
+    basis wins."""
+    B, T = n_states - 2, n_states - 1
+
+    def where(mask, value, idx):
+        return idx if mask is None else torch.where(mask, value, idx)
+
+    if predict_order:
+        pidx = where(basis_p, B, pidx)
+        cidx = where(basis_c, B, cidx)
+        pidx = where(target_p, T, pidx)
+        cidx = where(target_c, T, cidx)
+    else:
+        cidx = where(target_c, T, cidx)
+        pidx = where(target_p, T, pidx)
+        pidx = where(basis_p, B, pidx)
+        cidx = where(basis_c, B, cidx)
+    return pidx.to(torch.int32), cidx.to(torch.int32)
+
+
+def _scatter_flux(pidx, cidx, w, n_states):
+    """(S, S) flux of ``w`` at (parent, child), accumulated in the dtype of
+    ``w``: f64 weights give the facade's parity-grade flux (WE weights span
+    hundreds of decades; an f32 scatter would flush small ones)."""
+    flat = pidx.to(torch.int64) * n_states + cidx.to(torch.int64)
+    fm = torch.zeros(n_states * n_states, dtype=w.dtype, device=w.device)
+    return fm.index_add_(0, flat, w).reshape(n_states, n_states)
+
+
+def _raw_pair_assign(fp, fc, pbins, cbins, centers, center_bin, valid):
+    """Nearest-center ids for parent and child rows, no overrides."""
+    return pair_assign(fp, fc, pbins, cbins, centers, center_bin, valid)
+
+
+def _assign_overridden(fp, fc, pbins, cbins, basis_p, basis_c, target_c,
+                       centers, center_bin, valid, n_states, target_p=None,
+                       predict_order=False):
+    """Assign parent and child rows and apply the overrides in one kernel
+    launch (the H4 epilogue)."""
+    return pair_assign(
+        fp, fc, pbins, cbins, centers, center_bin, valid, n_states=n_states,
+        basis_p=basis_p, basis_c=basis_c, target_p=target_p,
+        target_c=target_c, order="predict" if predict_order else "flux",
+    )
+
+
+def _discretize_and_flux(fp, fc, pbins, cbins, basis_p, basis_c, target_c, w,
+                         centers, center_bin, valid, n_states, target_p=None):
+    """Assign, flux-order overrides and the flux scatter (in the dtype of
+    ``w``) as one H3 launch. Returns ``(fm, pidx, cidx)``."""
+    pidx, cidx, fm = assign_flux(
+        fp, fc, pbins, cbins, w, basis_p, basis_c, target_c, centers,
+        center_bin, valid, n_states, target_p=target_p,
+    )
+    return fm, pidx, cidx
+
+
+def fused_step_single(fp, fc, pbins, cbins, basis_p, basis_c, target_c, w,
+                      centers, center_bin, valid, n_states, target_p=None):
+    """Single-device fused discretize + flux (the benchmark hot path).
+    Returns ``(fm, pidx, cidx)``."""
+    return _discretize_and_flux(
+        fp, fc, pbins, cbins, basis_p, basis_c, target_c, w, centers,
+        center_bin, valid, n_states, target_p=target_p,
+    )
+
+
+def pair_assign_predict(fp, fc, pbins, cbins, basis_p, basis_c, target_c,
+                        centers, center_bin, valid, n_states, target_p=None):
+    """One-device ``build_sharded_pair_assign``: predict-order (target
+    wins) parent and child ids, the dtrajs numbering."""
+    return _assign_overridden(
+        fp, fc, pbins, cbins, basis_p, basis_c, target_c, centers,
+        center_bin, valid, n_states, target_p=target_p, predict_order=True,
+    )
+
+
+def single_assign_predict(fc, cbins, basis_c, target_c, centers, center_bin,
+                          valid, n_states):
+    """One-device ``build_sharded_single_assign``: one row set with the
+    predict-order overrides (the dedup discretization fast path)."""
+    return pair_assign(
+        None, fc, None, cbins, centers, center_bin, valid, n_states=n_states,
+        basis_c=basis_c, target_c=target_c, order="predict",
+    )
+
+
+def steady_state_from_flux(fm, basis_mask, target_mask, n_iters=512,
+                           tol=1e-6, max_extra_squarings=16):
+    """Device tail in the dtype of ``fm``: row-normalize with sink
+    recycling, then ``p0 T^n`` by repeated squaring.
+
+    ``ceil(log2(n_iters))`` squarings, then more (at most
+    ``max_extra_squarings``) while the residual ``||p T - p||_1`` exceeds
+    ``tol``; each extra check reads the residual on the host. The row
+    divisor is exact (no clamp), so rows with outflux below 1e-30 stay
+    stochastic. Returns ``(T, p, flux, residual)``.
+    """
+    S = fm.shape[0]
+    dev, dt = fm.device, fm.dtype
+    out = fm.sum(1)
+    pos = out > 0
+    T = torch.where(
+        pos[:, None], fm / torch.where(pos, out, torch.ones_like(out))[:, None],
+        torch.zeros_like(fm),
+    )
+    eye = torch.eye(S, dtype=torch.bool, device=dev)
+    T = torch.where((~pos)[:, None] & eye, torch.ones_like(T), T)
+    # Target rows recycle uniformly into the basis
+    n_basis = basis_mask.sum().clamp(min=1).to(dt)
+    recycle = torch.where(
+        basis_mask, 1.0 / n_basis, torch.zeros((), dtype=dt, device=dev)
+    )
+    T = torch.where(target_mask[:, None], recycle[None, :], T)
+    p0 = torch.ones(S, dtype=dt, device=dev) / S
+
+    def stationary(Tn):
+        p = p0 @ Tn
+        p = p / p.sum().clamp(min=1e-30)
+        return p, (p @ T - p).abs().sum()
+
+    def square(Tn):
+        Tn = Tn @ Tn
+        # Renormalize rows: f32 powering drifts row sums off 1
+        return Tn / Tn.sum(1, keepdim=True).clamp(min=1e-30)
+
+    Tn = T
+    for _ in range(max(int(math.ceil(math.log2(max(n_iters, 2)))), 1)):
+        Tn = square(Tn)
+    p, residual = stationary(Tn)
+    for _ in range(max_extra_squarings):
+        if not float(residual) > tol:
+            break
+        Tn = square(Tn)
+        p, residual = stationary(Tn)
+    flux = (torch.where(target_mask[None, :], T, torch.zeros_like(T))
+            * p[:, None]).sum()
+    return T, p, flux, residual
