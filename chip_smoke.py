@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``msm_we_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases device,build,kernels,main] [--out DIR]
+    python3 chip_smoke.py [--phases device,build,kernels,main,analysis] [--out DIR]
 
 Phases, each printing one JSON line:
 
@@ -19,6 +19,13 @@ Phases, each printing one JSON line:
    results are checked against references: the hot step on a reduced
    problem against its CPU run, and a reduced build on the GPU against the
    same build on the CPU.
+5. ``analysis``: the default build (block cross-validation, predict route)
+   at 101 x 10,000 segments with every launch count reset first; H4 must
+   have launched. Then the analysis on that model (committors, flux
+   profiles, implied timescales, CK test, bootstrap, lagged flux), the
+   default build on the GPU against the CPU at 30 x 200 (and two GPU
+   builds bitwise equal), and both f64 FPT device engines against the
+   host engines (1,000 states) and alone (2,500 states).
 
 The line before the last is the ``{"kernels": [...]}`` summary and the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -35,7 +42,7 @@ import sys
 import time
 from pathlib import Path
 
-PHASES = ("device", "build", "kernels", "main")
+PHASES = ("device", "build", "kernels", "main", "analysis")
 
 KERNEL_INFO = {
     "transform_assign_child": dict(
@@ -473,6 +480,329 @@ def phase_main(args, summary):
         emit(dict(phase="build_parity", **_build_parity(small, scan)))
 
 
+# -------------------------------------------------------------- analysis
+
+
+def _default_build(data, device, n_clusters=25):
+    """``build_analyze_model`` with its defaults (block cross-validation,
+    2 groups x 4 blocks; predict route) in the bench configuration."""
+    import numpy as np
+
+    from msm_we_tpu_torch.binning import RectilinearBinMapper
+    from msm_we_tpu_torch.data import ArrayWEDataset
+    from msm_we_tpu_torch.model import modelWE
+
+    model = modelWE(device=device)
+    t0 = time.perf_counter()
+    model.build_analyze_model(
+        file_paths=ArrayWEDataset(data),
+        ref_struct={"coords": None, "nAtoms": 4, "coord_ndim": 3},
+        modelName="smoke",
+        basis_pcoord_bounds=[[9.0, 10.0]],
+        target_pcoord_bounds=[[0.0, 1.0]],
+        dimreduce_method="pca",
+        tau=1.0,
+        n_clusters=n_clusters,
+        show_live_display=False,
+        step_kwargs={"clustering": {
+            "user_bin_mapper": RectilinearBinMapper([np.linspace(0, 10, 13)]),
+            "scan_small_batches": True,
+        }},
+    )
+    return time.perf_counter() - t0, model
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return time.perf_counter() - t0, out
+
+
+def _check_probability_vector(name, q):
+    import numpy as np
+
+    q = np.asarray(q)
+    require(np.isfinite(q).all(), f"{name} is not finite")
+    require(q.min() >= -1e-9 and q.max() <= 1 + 1e-9,
+            f"{name} leaves [0, 1]: [{q.min()}, {q.max()}]")
+
+
+def _analysis_calls(model):
+    """The analysis a user runs on a built model, each timed and checked.
+    The lagged flux matrices come last: they leave the model at that lag."""
+    import numpy as np
+
+    out = {}
+    n = model.n_clusters
+
+    s, _ = _timed(model.get_committor)
+    _check_probability_vector("committor", model.q)
+    out["get_committor"] = s
+    s, _ = _timed(model.get_flux)
+    require(np.isfinite(model.J).all(), "flux profile is not finite")
+    out["get_flux"] = s
+    s, _ = _timed(model.get_flux_committor)
+    require(np.isfinite(model.Jq).all(), "committor flux profile is not finite")
+    out["get_flux_committor"] = s
+    q = model.q.copy()
+    s, _ = _timed(lambda: model.get_backwards_committor(conv=1e-5))
+    _check_probability_vector("backwards committor", model.qm)
+    out["get_backwards_committor"] = s
+    model.q = q
+    s, (lag_times, ts) = _timed(lambda: model.get_implied_timescales(lags=(0, 1, 2)))
+    require(ts.shape == (3, 3) and lag_times.shape == (3,),
+            f"implied timescales have shape {ts.shape}")
+    out["get_implied_timescales"] = s
+    s, ck = _timed(lambda: model.get_ck_test(lags=(0, 1, 2, 3), sets=2))
+    require(ck[2].shape == ck[3].shape == (len(ck[1]), 4) and len(ck[1]) >= 1,
+            f"CK test has shape {ck[2].shape}")
+    out["get_ck_test"] = s
+    s, boot = _timed(lambda: model.bootstrap_target_flux(
+        n_boot=200, observables=("flux", "pss", "committor")))
+    lo, hi = boot["ci"]
+    require(np.isfinite([lo, hi]).all() and lo <= hi, f"bootstrap ci {boot['ci']}")
+    require(boot["n_failed"] < 200, "every bootstrap replicate failed")
+    out["bootstrap_target_flux"] = s
+    out["bootstrap_ci"] = [lo, hi]
+    out["bootstrap_n_failed"] = boot["n_failed"]
+    for lag in (1, 2, 3):
+        s, _ = _timed(lambda: model.get_fluxMatrix(lag))
+        require(model.fluxMatrixRaw.shape == (n + 2, n + 2),
+                f"lag-{lag} flux has shape {model.fluxMatrixRaw.shape}")
+        out[f"get_fluxMatrix_lag{lag}"] = s
+    return out
+
+
+def _default_build_parity(data):
+    """The default build on the GPU against the same build on the CPU,
+    then two GPU builds against each other (the clustering scan's sums run
+    in a fixed order, so repeated GPU builds are bitwise equal)."""
+    import numpy as np
+
+    _t, g = _default_build(data, "cuda")
+    _t, c = _default_build(data, "cpu")
+    _t, g2 = _default_build(data, "cuda")
+    dg, dc = np.concatenate(g.dtrajs), np.concatenate(c.dtrajs)
+    flips = int((dg != dc).sum())
+    jv_g = [v.JtargetSS for v in g.validation_models]
+    jv_c = [v.JtargetSS for v in c.validation_models]
+    res = dict(rows=int(len(dc)), dtraj_flips=flips,
+               JtargetSS_gpu=float(g.JtargetSS), JtargetSS_cpu=float(c.JtargetSS),
+               validation_JtargetSS_gpu=jv_g, validation_JtargetSS_cpu=jv_c)
+    require(np.array_equal(np.concatenate(g2.dtrajs), dg)
+            and g2.JtargetSS == g.JtargetSS
+            and [v.JtargetSS for v in g2.validation_models] == jv_g,
+            "two GPU builds with the clustering scan are not bitwise equal")
+    res["gpu_builds_bitwise_equal"] = True
+    if flips:
+        require(flips <= 1e-3 * len(dc), f"{flips} dtraj rows flip GPU vs CPU")
+        require(abs(g.JtargetSS - c.JtargetSS) <= 1e-3 * abs(c.JtargetSS),
+                "JtargetSS differs between GPU and CPU builds")
+        return res
+
+    def close(a, b, what):
+        a, b = np.asarray(a, float), np.asarray(b, float)
+        err = float(np.nanmax(np.abs(a - b)) / max(float(np.nanmax(np.abs(b))), 1e-300))
+        require(np.array_equal(np.isnan(a), np.isnan(b)) and err <= 1e-8,
+                f"{what} differs between GPU and CPU builds by {err}")
+        return err
+
+    errs = {"JtargetSS": close(g.JtargetSS, c.JtargetSS, "JtargetSS"),
+            "validation_JtargetSS": close(jv_g, jv_c, "validation JtargetSS")}
+    for m in (g, c):
+        m.get_committor()
+    errs["committor"] = close(g.q, c.q, "committor")
+    boots = [m.bootstrap_target_flux(n_boot=50)["fluxes"] for m in (g, c)]
+    errs["bootstrap_fluxes"] = close(boots[0], boots[1], "bootstrap fluxes")
+    for m in (g, c):
+        m.get_fluxMatrix(1)
+    errs["lag1_flux"] = close(g.fluxMatrixRaw, c.fluxMatrixRaw, "lag-1 flux matrix")
+    res["max_rel_err"] = errs
+    return res
+
+
+def _random_metastable(n, seed=1):
+    """The FPT test matrix of ``scripts/fpt_perf.py``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    T = rng.random((n, n)) * 0.02 + np.diag(rng.random(n) * 20 + 1)
+    return T / T.sum(axis=1, keepdims=True)
+
+
+def _rel_err(a, b):
+    import numpy as np
+
+    return float(np.max(np.abs(a - b)) / max(float(np.max(np.abs(b))), 1e-300))
+
+
+def _plain_fpt_distribution(T, ini, fin, w, lags, logscale):
+    """``MatrixFPT.fpt_distribution``'s result (``lag_time = dt = 1``)
+    from a plain per-lag ``torch.linalg.matrix_power`` loop in f64 on the
+    card: the target columns merged into ``fin[0]``, the other targets
+    dropped (``ini`` lies below them), the density folded by step width."""
+    import numpy as np
+    import torch
+
+    tm = T.copy()
+    tm[:, fin[0]] = tm[:, fin].sum(axis=1)
+    keep = [i for i in range(len(tm)) if i not in fin[1:]]
+    Tt = torch.as_tensor(tm[np.ix_(keep, keep)], device="cuda")
+    F, prev, pdfs = Tt, 0, []
+    for lag in lags:
+        F = torch.linalg.matrix_power(Tt, int(lag - prev)) @ (F - torch.diag(torch.diag(F)))
+        pdfs.append(F[ini, fin[0]])
+        prev = lag
+    w = np.asarray(w, float)
+    density = w @ torch.stack(pdfs, dim=1).cpu().numpy() / w.sum()
+    if logscale:
+        times, widths = lags, np.diff(np.concatenate([[0], lags]))
+    else:
+        times, widths = lags + 1, np.ones(len(lags))
+    dist = np.column_stack([np.concatenate([[0.0], times]),
+                            np.concatenate([[0.0], density * widths])])
+    dist[:, 1] /= dist[:, 1].sum()
+    return dist
+
+
+def _fpt_checks():
+    """Both f64 device engines of ``msm.fpt`` on the card against the host
+    f64 engines at n = 1,000, and alone at n = 2,500 against a plain
+    per-lag ``matrix_power`` loop. Each timed device call follows an
+    untimed one of the same shape."""
+    import numpy as np
+    import torch
+
+    from msm_we_tpu_torch.msm import fpt
+
+    def sync_timed(fn):
+        torch.cuda.synchronize()
+        return _timed(fn)
+
+    schedules = (("linear", dict(max_n_lags=100)),
+                 ("logscale", dict(max_n_lags=100, logscale=True,
+                                   min_power=1, max_power=4)))
+    lines = []
+    n = 1000
+    T = _random_metastable(n)
+    ini, fin, w = [0, 1, 2], [n - 2, n - 1], [0.5, 0.3, 0.2]
+    for name, kw in schedules:
+        host_s, host = _timed(lambda: fpt.MatrixFPT.fpt_distribution(T, ini, fin, w, **kw))
+        fpt.MatrixFPT.fpt_distribution(T, ini, fin, w, engine="device",
+                                       device="cuda", **kw)  # first use
+        dev_s, dev = sync_timed(lambda: fpt.MatrixFPT.fpt_distribution(
+            T, ini, fin, w, engine="device", device="cuda", **kw))
+        err = _rel_err(dev[:, 1], host[:, 1])
+        require(np.array_equal(dev[:, 0], host[:, 0]) and err <= 1e-10,
+                f"fpt_distribution [{name}] device differs from host by {err}")
+        lines.append(dict(check="fpt_distribution", n_states=n, schedule=name,
+                          host_s=host_s, device_s=dev_s, max_rel_err=err))
+
+    akw = dict(max_steps=400, max_time=1e7)
+    host_s, host = _timed(lambda: fpt.MatrixFPT.adaptive_fpt_distribution(
+        T, ini, w, fin, **akw))
+    fpt.MatrixFPT.adaptive_fpt_distribution(
+        T, ini, w, fin, engine="device", device="cuda", **akw)  # first use
+    dev_s, dev = sync_timed(lambda: fpt.MatrixFPT.adaptive_fpt_distribution(
+        T, ini, w, fin, engine="device", device="cuda", **akw))
+    same = dev[2] == host[2] and np.array_equal(dev[3], host[3])
+    require(same, "adaptive schedule differs between device and host engines")
+    err = float(np.nanmax(np.abs(dev[0] - host[0])))
+    require(np.allclose(dev[0], host[0], rtol=1e-8, atol=1e-14),
+            f"adaptive probabilities differ by {err}")
+    lines.append(dict(check="adaptive_fpt_distribution", n_states=n,
+                      host_s=host_s, device_s=dev_s, schedule_equal=True,
+                      steps=int(host[2]), max_abs_err=err,
+                      mass_host=float(np.nansum(host[0])),
+                      mass_device=float(np.nansum(dev[0]))))
+
+    n = 2500
+    T = _random_metastable(n)
+    ini, fin = [0, 1, 2], [n - 2, n - 1]
+    for name, kw in schedules:
+        fpt.MatrixFPT.fpt_distribution(T, ini, fin, w, engine="device",
+                                       device="cuda", **kw)  # first use
+        dev_s, dev = sync_timed(lambda: fpt.MatrixFPT.fpt_distribution(
+            T, ini, fin, w, engine="device", device="cuda", **kw))
+        lags = (np.logspace(1, 4, 100, dtype=int) if kw.get("logscale")
+                else np.arange(0, 100))
+        plain_s, plain = sync_timed(lambda: _plain_fpt_distribution(
+            T, ini, fin, w, lags, bool(kw.get("logscale"))))
+        err = _rel_err(dev[:, 1], plain[:, 1])
+        require(np.isfinite(dev).all() and np.array_equal(dev[:, 0], plain[:, 0])
+                and err <= 1e-10,
+                f"fpt_distribution [{name}] at {n} states differs from the "
+                f"matrix_power loop by {err}")
+        lines.append(dict(check="fpt_device_only", n_states=n, schedule=name,
+                          device_s=dev_s, plain_matrix_power_s=plain_s,
+                          max_set_bits=max(int(s).bit_count() for s in
+                                           np.diff(np.concatenate([[0], lags]))),
+                          max_rel_err_vs_matrix_power=err))
+    fpt.MatrixFPT.adaptive_fpt_distribution(
+        T, ini, w, fin, engine="device", device="cuda", **akw)  # first use
+    ad_s, ad = sync_timed(lambda: fpt.MatrixFPT.adaptive_fpt_distribution(
+        T, ini, w, fin, engine="device", device="cuda", **akw))
+    mass = float(np.nansum(ad[0]))
+    require(mass >= 0.99999, f"adaptive mass captured {mass} < 0.99999")
+    lines.append(dict(check="adaptive_fpt_device_only", n_states=n,
+                      device_s=ad_s, steps=int(ad[2]), mass=mass))
+    return lines
+
+
+def phase_analysis(args, summary):
+    """The default build at 1.01M segments, the analysis on it, parity
+    with the CPU at 30 x 200, and the FPT engines."""
+    import numpy as np
+    import torch
+
+    from msm_we_tpu_torch.data import generate_we_arrays
+    from msm_we_tpu_torch.ops import stratified_assign as sa
+
+    # ---- (c) parity first: it also warms CUDA and the kernel library
+    small = generate_we_arrays(n_iterations=30, n_segments=200, seed=17)
+    emit(dict(phase="analysis_parity", **_default_build_parity(small)))
+
+    # ---- (a) the default build at 1.01M segments, counted
+    t0 = time.perf_counter()
+    data = generate_we_arrays(n_iterations=101, n_segments=10_000, seed=17)
+    emit(dict(phase="analysis_data", iterations=101, segments_per_iteration=10_000,
+              generate_s=time.perf_counter() - t0))
+    # A cold build (first use of every path at this size), then the warm,
+    # counted one
+    cold_s, model = _default_build(data, "cuda")
+    del model
+    torch.cuda.synchronize()
+    sa.reset_launch_counts()
+    secs, model = _default_build(data, "cuda")
+    torch.cuda.synchronize()
+    counts = sa.launch_counts()
+    del data
+    names = [n for n, _s, _note in model.stage_timings.stages]
+    jv = [float(v.JtargetSS) for v in model.validation_models]
+    require(counts["pair_assign"] > 0, "pair_assign never launched in the default build")
+    require(len(jv) == 2 and all(np.isfinite(jv)) and min(jv) > 0,
+            f"validation JtargetSS {jv}")
+    require(names[-1] == "Cross-validation", f"stages end with {names[-1]}")
+    require(np.isfinite(model.JtargetSS) and model.JtargetSS > 0,
+            f"build JtargetSS = {model.JtargetSS}")
+    emit(dict(phase="analysis_build", segments=int(sum(len(d) for d in model.dtrajs)),
+              seconds_cold=cold_s, seconds_warm=secs,
+              stages={n: s for n, s, _note in model.stage_timings.stages},
+              clusters_before=int(model.fluxMatrixRaw.shape[0]),
+              clusters_after=int(model.fluxMatrix.shape[0]),
+              JtargetSS=float(model.JtargetSS), validation_JtargetSS=jv,
+              launch_counts=counts))
+    summary["launches_analysis"] = counts
+
+    # ---- (b) the analysis on that model
+    emit(dict(phase="analysis_calls", **_analysis_calls(model)))
+    del model
+
+    # ---- (d) FPT engines
+    for line in _fpt_checks():
+        emit(dict(phase="analysis_fpt", **line))
+
+
 # -------------------------------------------------------------------- run
 
 
@@ -529,14 +859,18 @@ def main(argv=None):
         phase_kernels(args, summary)
     if "main" in phases:
         phase_main(args, summary)
+    if "analysis" in phases:
+        phase_analysis(args, summary)
 
     launches = summary.get("launches", {})
+    launches_analysis = summary.get("launches_analysis", {})
     kernels = []
     for name, info in KERNEL_INFO.items():
         k = summary.get(name, {})
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE,
             replaces=info["replaces"], launches=launches.get(name),
+            launches_analysis=launches_analysis.get(name),
             max_abs_err=k.get("max_abs_err"), ms=k.get("ms"),
             plain_ms=k.get("plain_ms"),
         ))

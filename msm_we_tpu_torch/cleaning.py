@@ -10,7 +10,6 @@ recompute is the host f64 bincount.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ._logging import log
 from .binning import find_nearest_bin
@@ -170,17 +169,9 @@ def incremental_rediscretize(model, strat, old_remap, old_global, old_total):
 
 
 def assign_rows_subset(model, strat, X, bins_eff):
-    """Stratified global ids for a (usually small) row subset, through the
-    same masked assignment as the full discretization, on the model's
-    device."""
-    from .ops.kmeans import masked_assign
-
-    dev = model.device
-    cb, valid, _init = strat._device_meta()
-    centers, _counts = strat._device_state()
-    flat = masked_assign(
-        torch.as_tensor(np.asarray(X, np.float32), device=dev),
-        torch.as_tensor(np.asarray(bins_eff, np.int32), device=dev),
-        centers, cb, valid, n_bins=strat.n_bins,
-    ).cpu().numpy()
-    return strat.global_id[flat]
+    """Stratified global ids for a (usually small) row subset, in the
+    scoring family the full discretization used (``model._scored_on_host``,
+    recorded by ``launch_discretization``): the two families round
+    near-ties differently, and incremental cleaning must equal a full
+    re-discretization."""
+    return strat.global_id[strat.assign_flat(X, bins_eff, model._scored_on_host)]

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 
 from .binning import RectilinearBinMapper
+from .model import StratifiedClustersShim
 from .ops.pca import PCAModel
 from .ops.stratified import StratifiedKmeans
 
@@ -62,7 +63,7 @@ def fitted_state_from_arrays(model, *, pca_mean, pca_components,
 
     model._bin_mapper = RectilinearBinMapper(bin_edges)
     model._strat = strat
-    model.clusters = strat
+    model.clusters = StratifiedClustersShim(model._bin_mapper, model, strat)
     model.clustering_method = "stratified"
     model.n_clusters = n_bins * k
     # Features follow the transform: recompute on next use

@@ -130,6 +130,51 @@ class ArrayWEDataset:
             anc = np.where(warped, -1, step)
         return anc, warped
 
+    def iter_transition_pairs(self, n_iter, n_lag, basis_coords=None):
+        """Transition pairs at lag ``n_lag`` ending in iteration ``n_iter``
+        (the file reader's rule): start = frame 0 of the ancestor ``n_lag``
+        iterations back, end = the segment's final frame; a lineage
+        recycled inside the window starts from ``basis_coords``.
+        ``weights`` are the current iteration's, zeroed where either used
+        frame has NaN coordinates; ``departure_weights`` the ancestor's
+        (the current weight for recycled lineages). Returns a dict with
+        ``start``, ``end``, ``weights``, ``departure_weights``,
+        ``start_pcoord``, ``warped``, ``anc``."""
+        anc, warped = self.ancestor_ids(n_iter, n_lag)
+        if warped.any() and basis_coords is None:
+            raise ValueError(
+                f"Iteration {n_iter} has lineages recycled within the lag-"
+                f"{n_lag} window; basis_coords is required to substitute "
+                "their start structures (reference semantics, _data.py:170-182)"
+            )
+        d_now = self.iter_data(n_iter)
+        d_lag = self.iter_data(n_iter - n_lag)
+        start_all = self._iter_frame_block(n_iter - n_lag, 0)
+        end = self._iter_frame_block(n_iter, -1)
+        weights = d_now["weights"].copy()
+        bad_end = np.isnan(end).any(axis=tuple(range(1, end.ndim)))
+        if bad_end.any():
+            log.warning(
+                f"Bad end-frame coordinates for segments "
+                f"{np.flatnonzero(bad_end)} in iteration {n_iter}, setting "
+                "weights to 0"
+            )
+            weights[bad_end] = 0.0
+        safe = np.where(warped, 0, anc)
+        start = start_all[safe].copy()
+        start_pcoord = d_lag["pcoord0"][safe].copy()
+        departure = d_lag["weights"][safe].copy()
+        if warped.any():
+            start[warped] = np.asarray(basis_coords, dtype=start.dtype)
+            start_pcoord[warped] = np.nan
+            departure[warped] = d_now["weights"][warped]
+        bad = np.isnan(start).any(axis=tuple(range(1, start.ndim))) & ~warped
+        weights[bad] = 0.0
+        return dict(
+            start=start, end=end, weights=weights, departure_weights=departure,
+            start_pcoord=start_pcoord, warped=warped, anc=anc,
+        )
+
     def check_continuity(self, sample_per_iter=8, full_iters=2, seed=0,
                          last_iter=None):
         """True iff segments' frame-0 coordinates are bit-identical to their
@@ -157,6 +202,11 @@ class ArrayWEDataset:
             if not np.array_equal(own_start, parent_end, equal_nan=True):
                 return False
         return True
+
+    def __deepcopy__(self, memo):
+        """The data are read-only: model copies (``post_cluster_model``,
+        the validation models) share one dataset."""
+        return self
 
     # ------------------------------------------- file-reader no-ops
     def start_prefetch(self, last_iter, frames=(-1,)):

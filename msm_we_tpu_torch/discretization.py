@@ -29,10 +29,35 @@ def _dev(a, device):
 
 def launch_discretization(model):
     """Discretize every iteration's parent and child features in one pass
-    (the reference's per-iteration fan-out, ``_clustering.py:1144-1242``,
-    as one or two kernel launches) and store the dtrajs."""
+    (the reference's per-iteration fan-out, ``_clustering.py:1144-1242``)
+    and store the dtrajs.
+
+    ``model.device_pipeline`` picks the route: the pair route
+    (:func:`pair_discretize`, one or two kernel launches over the
+    device-resident features), or the predict route, which sends the 2N
+    concatenated parent and child rows through ``StratifiedKmeans.predict``
+    in one call (on CUDA from ``HOST_BATCH_THRESHOLD`` rows up: one H4
+    launch through ``ops.kmeans.masked_assign``). Both give the same ids.
+    The scoring family is recorded in ``model._scored_on_host`` for
+    cleaning's re-scores.
+    """
     parent_bins, child_bins = model._raw_we_bins()
-    pidx, cidx = pair_discretize(model, model._strat, parent_bins, child_bins)
+    strat = model._strat
+    if model.device_pipeline:
+        pidx, cidx = pair_discretize(model, strat, parent_bins, child_bins)
+        model._scored_on_host = False
+    else:
+        feats = model._featurize_all()
+        masks = model._pc_masks()
+        n = len(parent_bins)
+        X = np.concatenate([feats["parent"], feats["child"]])
+        model._scored_on_host = strat.scores_on_host(len(X))
+        both = strat.predict(
+            X, np.concatenate([parent_bins, child_bins]),
+            is_basis=np.concatenate([masks["basis_p"], masks["basis_c"]]),
+            is_target=np.concatenate([masks["target_p"], masks["target_c"]]),
+        )
+        pidx, cidx = both[:n], both[n:]
     model._store_dtrajs(pidx, cidx)
 
 

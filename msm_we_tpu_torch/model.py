@@ -1,17 +1,25 @@
 """modelWE facade of the port: the haMSM build on one device.
 
-Counterpart of ``msm_we_tpu/model.py::modelWE``, with only the methods the
-build ``build_analyze_model`` runs: ingest -> PCA -> stratified k-means per
-WE bin -> discretize parent and child frames -> f64 flux matrix ->
-cleaning -> transition matrix -> steady state -> JtargetSS. The attribute
+Counterpart of ``msm_we_tpu/model.py::modelWE``: the build
+``build_analyze_model`` (ingest -> PCA -> stratified k-means per WE bin ->
+discretize parent and child frames -> f64 flux matrix -> cleaning ->
+transition matrix -> steady state -> JtargetSS -> block cross-validation),
+lagged flux matrices, the analysis a user runs on a built model
+(committors, flux profiles, implied timescales, the Chapman-Kolmogorov
+test, the bootstrap confidence interval) and checkpointing. The attribute
 names are the JAX package's (``fluxMatrixRaw``, ``fluxMatrix``, ``pSS``,
-``JtargetSS``, ``stage_timings``, ``dtrajs``, ``pair_dtrajs``, ...).
+``JtargetSS``, ``stage_timings``, ``dtrajs``, ``pair_dtrajs``,
+``validation_models``, ...).
 
 One device replaces the JAX package's mesh: ``modelWE(device=...)``. With
 CUDA the discretization, the streaming clustering scan and the cleaning
 re-assignments launch the hand-written kernels of
 ``ops/stratified_assign.py``; with the CPU they run the plain versions.
-The analysis tail stays in host float64.
+``device_pipeline`` picks the discretization route only: the pair route
+(``True``, parent and child rows in one pair launch) or the predict route
+(``False``, the default of ``build_analyze_model``: the 2N concatenated
+rows through ``StratifiedKmeans.predict``). The analysis tail stays in
+host float64.
 
 The data come in memory, as an :class:`~msm_we_tpu_torch.data.ArrayWEDataset`
 passed where the JAX package takes a list of west.h5 paths. What the port
@@ -19,8 +27,12 @@ does not cover yet raises ``NotImplementedError`` naming its ROADMAP entry.
 """
 from __future__ import annotations
 
-import numpy as np
+import copy
 
+import numpy as np
+import torch
+
+from . import bootstrap as _bootstrap
 from . import cleaning as _cleaning
 from . import discretization as _discretization
 from . import fluxmatrix as _fluxmatrix
@@ -48,13 +60,90 @@ def default_process_coordinates(coords):
     return coords.reshape(coords.shape[0], -1)
 
 
+class _BinModelView:
+    """Per-bin compatibility view with a ``cluster_centers_`` attribute."""
+
+    def __init__(self, strat, bin_idx):
+        self._strat = strat
+        self._bin = bin_idx
+
+    @property
+    def cluster_centers_(self):
+        strat = self._strat
+        strat._sync_host()
+        rows = slice(self._bin * strat.k, (self._bin + 1) * strat.k)
+        return strat.centers[rows][strat.valid[rows]]
+
+
+class StratifiedClustersShim:
+    """Stand-in for the reference's ``StratifiedClusters``: ``cluster_models``
+    (per-bin views), ``we_remap``, ``bin_mapper`` and ``predict`` with the
+    reference's ``toggle``/``processing_from`` flip-flop
+    (``stratified_clustering.py:101-212``), backed by the flat
+    :class:`~msm_we_tpu_torch.ops.stratified.StratifiedKmeans` bank."""
+
+    def __init__(self, bin_mapper, model, strat):
+        self.bin_mapper = bin_mapper
+        self.model = model
+        self.strat = strat
+        self.n_clusters_per_bin = strat.k
+        self.processing_from = False
+        self.toggle = False
+        self.target_bins = set()
+        self.basis_bins = set()
+
+    @property
+    def cluster_models(self):
+        return [
+            _BinModelView(self.strat, b) if self.strat.initialized[b] else object()
+            for b in range(self.strat.n_bins)
+        ]
+
+    @property
+    def we_remap(self):
+        return {i: int(v) for i, v in enumerate(self.strat.we_remap)}
+
+    @property
+    def n_total_clusters(self):
+        return self.strat.n_total_clusters
+
+    def predict(self, coords):
+        """Ids of ``coords`` with WE bins from the model's current pcoord
+        lists: ``processing_from`` picks ``pcoord0List`` (parents) or
+        ``pcoord1List`` (children); ``toggle`` alternates it after each
+        call."""
+        model = self.model
+        pcoords = model.pcoord0List if self.processing_from else model.pcoord1List
+        we_bins = self.bin_mapper.assign(pcoords)
+        is_target = model.is_WE_target(pcoords)
+        is_basis = model.is_WE_basis(pcoords)
+        # The reference records remapped bins (stratified_clustering.py:135,
+        # 163-169)
+        remapped = self.strat.we_remap[we_bins]
+        self.target_bins.update(np.unique(remapped[is_target]).tolist())
+        self.basis_bins.update(np.unique(remapped[is_basis]).tolist())
+        result = self.strat.predict(
+            np.asarray(coords), we_bins, is_basis=is_basis, is_target=is_target
+        )
+        if self.toggle:
+            self.processing_from = not self.processing_from
+        return result
+
+
 class modelWE:
     """History-augmented Markov state model estimation from WE data, on
     ``device`` ("cpu" runs the plain PyTorch versions, "cuda" the
     kernels)."""
 
+    class BlockValidationError(Exception):
+        pass
+
     def __init__(self, device="cpu"):
         self.device = as_device(device)
+        # The discretization route: pair launches (True) or the predict
+        # route over the 2N concatenated rows (False);
+        # build_analyze_model sets it from its argument
+        self.device_pipeline = True
         self.modelName = None
         self.pcoord_ndim = None
         self.pcoord_len = None
@@ -66,6 +155,7 @@ class modelWE:
         self.basis_bin_centers = None
         self.target_bin_centers = None
 
+        self.basis_coords = None
         self.coordinates = None
         self.ndim = None
         self.dimReduceMethod = None
@@ -78,6 +168,7 @@ class modelWE:
         self.pair_dtrajs = None
         self._parent_idx = None
         self._child_idx = None
+        self._scored_on_host = None
 
         self.fluxMatrixRaw = None
         self.fluxMatrix = None
@@ -102,6 +193,7 @@ class modelWE:
         self._bin_mapper = None
         self._fluxMatrixParams = None
         self._cluster_seed = 0
+        self.post_cluster_model = None
 
     # ------------------------------------------------------------------ init
     def initialize(self, fileSpecifier, refPDBfile, modelName,
@@ -270,6 +362,33 @@ class modelWE:
         self.nAtoms = topology["nAtoms"]
         self.coord_ndim = topology["coord_ndim"]
 
+    def set_basis(self, basis):
+        """A dict with ``coords``: the start structure that lagged
+        transitions substitute for lineages recycled inside the window
+        (files and mdtraj objects are not supported by the port)."""
+        if not isinstance(basis, dict):
+            raise _not_ported("non-dict basis structures (files, mdtraj)",
+                              "plugins and extended.py")
+        self.basis_coords = basis["coords"]
+
+    @property
+    def n_lag(self):
+        return self._n_lag
+
+    @n_lag.setter
+    def n_lag(self, lag):
+        """Any lag >= 0 (the reference gates this to 0, ``msm_we.py:353-359``;
+        lag > 0 is the JAX package's extension)."""
+        lag = int(lag)
+        if lag < 0:
+            raise ValueError(f"n_lag must be >= 0, got {lag}")
+        if lag > 0:
+            log.info(
+                f"Using lag n_lag={lag} ({lag + 1} tau transitions); this "
+                "extends the reference, which only supports n_lag=0."
+            )
+        self._n_lag = lag
+
     # ----------------------------------------------------------------- data
     def get_iterations(self):
         """Populate maxIter / numSegments (reference ``_data.py:934-993``)."""
@@ -287,6 +406,30 @@ class modelWE:
         self.nSeg = d["n_segs"]
         self.pcoord0List = d["pcoord0"]
         self.pcoord1List = d["pcoord1"]
+
+    def get_transition_data_lag0(self):
+        """``coordPairList``/``transitionWeights``/``departureWeights`` of
+        the loaded iteration (reference ``_data.py:254-320``)."""
+        parent, child, weights = self._dataset.iter_coord_pairs(self.n_iter)
+        self.coordPairList = np.stack([parent, child], axis=-1)
+        self.transitionWeights = weights.copy()
+        self.departureWeights = weights.copy()
+
+    def get_transition_data(self, n_lag):
+        """``coordPairList``/``transitionWeights``/``departureWeights`` at
+        lag ``n_lag`` for the loaded iteration: starts come from the
+        segment's ancestor ``n_lag`` iterations back, lineages recycled in
+        the window start from ``basis_coords`` (``set_basis``)."""
+        if n_lag == 0:
+            self.n_lag = 0
+            return self.get_transition_data_lag0()
+        tp = self._dataset.iter_transition_pairs(
+            self.n_iter, n_lag, basis_coords=self.basis_coords
+        )
+        self.n_lag = n_lag
+        self.coordPairList = np.stack([tp["start"], tp["end"]], axis=-1)
+        self.transitionWeights = tp["weights"]
+        self.departureWeights = tp["departure_weights"]
 
     def get_coordSet(self, last_iter, streaming=None, progress_bar=None):
         """Build ``pcoordSet`` (reference ``_data.py:677-759``, streaming)."""
@@ -360,11 +503,11 @@ class modelWE:
                             stratified=True, iters_to_use=None,
                             store_validation_model=False, progress_bar=None,
                             random_state=None, **_cluster_args):
-        """Stratified clustering (reference ``_clustering.py:142-195``)."""
+        """Stratified clustering (reference ``_clustering.py:142-195``).
+        ``store_validation_model`` keeps a deep copy of the clustered model
+        as ``post_cluster_model`` for block validation."""
         if not stratified:
             raise _not_ported("aggregated clustering", "aggregated clustering")
-        if store_validation_model:
-            raise _not_ported("block validation", "validation and bootstrap")
         if random_state is not None:
             self._cluster_seed = int(random_state)
         self.clustering_method = "stratified"
@@ -372,6 +515,8 @@ class modelWE:
             n_clusters=n_clusters, first_cluster_iter=first_cluster_iter,
             iters_to_use=iters_to_use, **_cluster_args,
         )
+        if store_validation_model:
+            self.post_cluster_model = copy.deepcopy(self)
 
     def _resolve_iters(self, iters_to_use, first_cluster_iter):
         if iters_to_use is not None and first_cluster_iter is not None:
@@ -433,7 +578,7 @@ class modelWE:
             log.debug(f"Remapped {ub} to {remap}")
 
         self._strat = strat
-        self.clusters = strat
+        self.clusters = StratifiedClustersShim(bin_mapper, self, strat)
         # The nominal total (reference ``_clustering.py:742``); never-visited
         # clusters are cleaned away in organize_fluxMatrix
         self.n_clusters = n_clusters * bin_mapper.nbins
@@ -441,8 +586,15 @@ class modelWE:
 
     # --------------------------------------------------------- discretization
     def launch_discretization(self, progress_bar=None):
-        """Discretize every parent and child row on the model's device."""
+        """Discretize every parent and child row on the model's device,
+        by the route ``device_pipeline`` picks."""
         return _discretization.launch_discretization(self)
+
+    def _ensure_discretized(self):
+        """Discretize if clustering left no dtrajs (every dtrajs consumer
+        calls this)."""
+        if self._parent_idx is None and self.clusters is not None:
+            self.launch_discretization()
 
     def _invalidate_pcoord_caches(self):
         self._raw_bins_cache = None
@@ -472,11 +624,18 @@ class modelWE:
     def get_fluxMatrix(self, n_lag, first_iter=1, last_iter=None,
                        iters_to_use=None, use_ray=False, result_batch_size=5,
                        progress_bar=None):
-        """Weighted lag-0 flux matrix (reference ``_fluxmatrix.py:166-345``)."""
+        """Weighted flux matrix at lag ``n_lag`` (reference
+        ``_fluxmatrix.py:166-345``; engine: :func:`fluxmatrix.get_flux_matrix`)."""
         return _fluxmatrix.get_flux_matrix(
             self, n_lag, first_iter=first_iter, last_iter=last_iter,
             iters_to_use=iters_to_use,
         )
+
+    def get_iter_fluxMatrix(self, n_iter):
+        """Single-iteration flux matrix (engine:
+        :func:`fluxmatrix.get_iter_flux_matrix`; reference
+        ``_fluxmatrix.py:21-72``)."""
+        return _fluxmatrix.get_iter_flux_matrix(self, n_iter)
 
     def organize_fluxMatrix(self, use_ray=False, progress_bar=None,
                             incremental=True, max_passes=10, **args):
@@ -547,6 +706,246 @@ class modelWE:
         self.lagtime = lagtime
         self.JtargetSS = J
 
+    def get_eqTmatrix(self):
+        """Equilibrium transition matrix: basis/target dropped, then
+        row-normalized (reference ``_analysis.py:81-95``)."""
+        self.Tmatrix = linalg.equilibrium_tmatrix_from_flux(
+            self.fluxMatrix, self.indTargets, self.indBasis
+        )
+
+    def get_steady_state_algebraic(self, max_iters=1000, check_negative=True,
+                                   set=True):
+        pSS = linalg.steady_state_algebraic(
+            self.Tmatrix, max_iters=max_iters, check_negative=check_negative
+        )
+        if not set:
+            return pSS
+        self.pSS = pSS
+
+    def get_steady_state_matrixpowers(self, conv):
+        """Matrix-power steady state (reference ``_analysis.py:284-315``)."""
+        max_iters = 10000
+        Mt = self.Tmatrix.copy()
+        dconv = 1.0e100
+        N = 1
+        pSS = np.mean(Mt, 0)
+        pSSp = np.ones_like(pSS)
+        while dconv > conv and N < max_iters:
+            Mt = self.Tmatrix @ Mt
+            N += 1
+            if N % 10 == 0:
+                pSS = np.mean(Mt, 0)
+                pSS = pSS / pSS.sum()
+                dconv = np.abs(pSS - pSSp).sum()
+                pSSp = pSS.copy()
+                self.pSS = pSS.copy()
+
+    def get_committor(self, conv=1e-5, max_iters=100_000):
+        log.info(
+            "Note: for steady-state WE data this is a 'pseudocommittor', not a "
+            "true committor, as it comes from a one-way ensemble."
+        )
+        self.q = linalg.committor(
+            self.fluxMatrix, self.indTargets, self.indBasis, self.nBins,
+            conv=conv, max_iters=max_iters,
+        )
+
+    def get_backwards_committor(self, conv, max_iters=100_000):
+        self.qm = linalg.backwards_committor(
+            self.fluxMatrix, self.indTargets, self.indBasis, self.nBins, conv,
+            max_iters=max_iters,
+        )
+        self.q = self.qm.copy()
+
+    def bootstrap_target_flux(self, n_boot=200, seed=0, alpha=0.05,
+                              block_size=1, iters_to_use=None,
+                              flux_fractional_convergence=1e-4, max_iters=10,
+                              observables=("flux",)):
+        """Block-bootstrap confidence interval for ``JtargetSS`` over WE
+        iterations (engine: :func:`msm_we_tpu_torch.bootstrap.bootstrap_target_flux`)."""
+        return _bootstrap.bootstrap_target_flux(
+            self, n_boot=n_boot, seed=seed, alpha=alpha,
+            block_size=block_size, iters_to_use=iters_to_use,
+            flux_fractional_convergence=flux_fractional_convergence,
+            max_iters=max_iters, observables=observables,
+        )
+
+    def get_flux(self):
+        """Net flux profile over pcoord-sorted states and the
+        overcorrection check (reference ``_analysis.py:386-466``)."""
+        from scipy.stats import linregress
+
+        centers = self.targetRMSD_centers[:, 0].copy()
+        centers[self.indBasis] = self.basis_bin_centers[0]
+        centers[self.indTargets] = self.target_bin_centers[0]
+        order = np.argsort(centers)
+        self.J = linalg.net_flux_profile(self.fluxMatrix, order)
+        if self.all_centers is None:
+            self.update_sorted_cluster_centers()
+        slope, intercept, r_value, p_value, std_err = linregress(
+            self.all_centers, self.J / self.tau
+        )
+        self.fit_parameters = {
+            "slope": slope, "intercept": intercept, "r_value": r_value,
+            "p_value": p_value, "std_err": std_err,
+        }
+        target_before_basis = bool(
+            np.any(self.target_bin_centers < self.basis_bin_centers)
+        )
+        self.slope_overcorrected = (slope < 0) if target_before_basis else (slope > 0)
+        if self.slope_overcorrected:
+            log.warning(
+                "Flux profile appears to be overcorrected: flux is higher near "
+                "the target than the basis. Restarting may have driven the "
+                "system past its true steady state; continue this WE run "
+                "without restarting and let it relax."
+            )
+
+    def get_flux_committor(self):
+        """Net flux profile over committor-sorted states (reference
+        ``_analysis.py:468-501``)."""
+        order = np.argsort(np.squeeze(1.0 - self.q))
+        self.Jq = linalg.net_flux_profile(self.fluxMatrix, order) / self.tau
+
+    def evolve_target_flux(self):
+        """Target flux of each stored transient distribution
+        ``probTransient`` (reference ``_analysis.py:503-525``)."""
+        Mss = self.Tmatrix
+        probTransient = self.probTransient
+        nT = np.shape(probTransient)[0]
+        Jtarget = np.zeros(nT)
+        self.lagtime = self.tau * (self.n_lag + 1)
+        ind_not_targets = np.setdiff1d(range(self.nBins), self.indTargets)
+        JtargetTimes = np.zeros(nT)
+        for iT in range(nT):
+            Jtarget[iT] = float(np.sum(
+                probTransient[iT, ind_not_targets][:, None]
+                * Mss[np.ix_(ind_not_targets, np.asarray(self.indTargets))]
+            ))
+            JtargetTimes[iT] = iT * self.nStore * self.lagtime
+        self.Jtarget = Jtarget / self.lagtime
+        self.JtargetTimes = JtargetTimes
+
+    def get_implied_timescales(self, lags=(0, 1, 2), n_timescales=3,
+                               iters_to_use=None, drop_basis_target=True):
+        """Implied-timescale lag test over WE lag windows: the raw flux
+        matrix at each ``n_lag`` in ``lags`` (physical lag
+        ``(n_lag + 1) * tau``), basis/target dropped, the leading
+        eigenvalues of the largest connected component as timescales.
+        Returns ``(lag_times, timescales)``, also stored as
+        ``self.implied_timescales``; the model's flux state is restored."""
+        fms, lag_times = self._lagged_flux_matrices(
+            lags, iters_to_use, drop_basis_target
+        )
+        self.implied_timescales = linalg.implied_timescales_from_flux(
+            fms, lag_times, n_timescales=n_timescales
+        )
+        return lag_times, self.implied_timescales
+
+    def _lagged_flux_matrices(self, lags, iters_to_use, drop_basis_target):
+        """Raw flux matrices at each ``n_lag`` in ``lags``, with the model's
+        flux-matrix state saved and restored around the rebuilds."""
+        saved = (
+            getattr(self, "fluxMatrixRaw", None),
+            self.n_lag,
+            getattr(self, "_fluxMatrixParams", None),
+            getattr(self, "errorWeight", None),
+            getattr(self, "errorCount", None),
+        )
+        fms, lag_times = [], []
+        try:
+            for lag in lags:
+                self.get_fluxMatrix(int(lag), iters_to_use=iters_to_use)
+                fm = np.asarray(self.fluxMatrixRaw)
+                if drop_basis_target:
+                    n = self.n_clusters
+                    fm = fm[:n, :n]
+                fms.append(fm)
+                lag_times.append((int(lag) + 1) * self.tau)
+        finally:
+            (self.fluxMatrixRaw, self.n_lag, self._fluxMatrixParams,
+             self.errorWeight, self.errorCount) = saved
+        return fms, np.asarray(lag_times, dtype=np.float64)
+
+    def get_ck_test(self, lags=(0, 1, 2, 3), sets=None, iters_to_use=None):
+        """Chapman-Kolmogorov test over WE lag windows: set-residence
+        probabilities of the directly estimated lagged models against the
+        ``lags[0]`` model propagated. ``sets=None`` splits by the slowest
+        mode's sign; an integer coarse-grains with PCCA+. Returns
+        ``(lag_times, sets, predicted, estimated)``, stored as
+        ``self.ck_test``."""
+        fms, lag_times = self._lagged_flux_matrices(
+            lags, iters_to_use, drop_basis_target=True
+        )
+        if isinstance(sets, bool):
+            raise ValueError(
+                "sets must be None (slowest-mode split), an integer PCCA+ "
+                "set count, or explicit state-index arrays -- not a bool"
+            )
+        if isinstance(sets, (int, np.integer)):
+            sets = linalg.pcca_sets(fms[0], int(sets))
+        factors = lag_times / lag_times[0]
+        int_factors = np.rint(factors).astype(int)
+        if not np.allclose(factors, int_factors):
+            raise ValueError(
+                f"CK test needs integer lag multiples of the base window; "
+                f"got physical lags {lag_times} (base {lag_times[0]})"
+            )
+        sets, predicted, estimated = linalg.chapman_kolmogorov_from_flux(
+            fms, int_factors, sets=sets
+        )
+        self.ck_test = (lag_times, sets, predicted, estimated)
+        return self.ck_test
+
+    # ------------------------------------------------------- block validation
+    def do_block_validation(self, cross_validation_groups,
+                            cross_validation_blocks, use_ray=False,
+                            progress_bar=None):
+        """Split the iterations into blocks, deal the blocks round-robin to
+        ``cross_validation_groups`` groups, and build one model per group
+        from a copy of ``post_cluster_model`` (reference
+        ``msm_we.py:884-1009``). Sets ``validation_iterations`` and
+        ``validation_models``."""
+        if self.post_cluster_model is None:
+            raise RuntimeError(
+                "Perform clustering with cluster_coordinates("
+                "store_validation_model=True) before block validation -- "
+                "self.post_cluster_model is not set."
+            )
+        base = self.post_cluster_model
+        validation_models = [
+            copy.deepcopy(base) for _ in range(cross_validation_groups)
+        ]
+        iters_per_block = base.maxIter // cross_validation_blocks
+        block_iterations = [
+            [start, start + iters_per_block]
+            for start in range(1, base.maxIter, iters_per_block)
+        ]
+        block_iterations[-1][-1] -= 1
+        group_blocks = [
+            range(start_idx, cross_validation_blocks, cross_validation_groups)
+            for start_idx in range(cross_validation_groups)
+        ]
+        validation_iterations = []
+        for group in range(cross_validation_groups):
+            group_iterations = []
+            for block in group_blocks[group]:
+                group_iterations.extend(range(*block_iterations[block]))
+            validation_iterations.append(group_iterations)
+            try:
+                _model = validation_models[group]
+                _model.get_fluxMatrix(0, iters_to_use=validation_iterations[group])
+                _model.organize_fluxMatrix()
+                _model.get_Tmatrix()
+                _model.get_steady_state()
+                _model.get_steady_state_target_flux()
+            except Exception as e:
+                log.error("Error during block validation!")
+                log.exception(e)
+                raise modelWE.BlockValidationError(e) from e
+        self.validation_iterations = validation_iterations
+        self.validation_models = validation_models
+
     # ------------------------------------------------------------- pipeline
     def build_analyze_model(self, file_paths, ref_struct, modelName,
                             basis_pcoord_bounds, target_pcoord_bounds,
@@ -561,25 +960,24 @@ class modelWE:
                             device_pipeline=False, dedup_coordinates="auto"):
         """One-shot build + analysis (reference ``msm_we.py:588-882``).
 
-        ``file_paths`` is an :class:`ArrayWEDataset`. The port runs the
-        device pipeline only (``device_pipeline=True``), stratified, lag 0,
-        without cross-validation; other configurations raise
-        ``NotImplementedError``. Stage wall-clocks land in
-        ``self.stage_timings``.
+        ``file_paths`` is an :class:`ArrayWEDataset`. ``device_pipeline``
+        picks the discretization route (pair launches, or the predict route
+        over the 2N concatenated rows); both give the same dtrajs.
+        ``cross_validation_groups > 0`` ends the build with block
+        cross-validation over ``cross_validation_blocks`` blocks; a failure
+        there raises unless ``allow_validation_failure``. Aggregated
+        clustering and profiler traces raise ``NotImplementedError``. Stage
+        wall-clocks land in ``self.stage_timings``.
         """
         from .tracing import StageTimer, live_stage_display
 
-        if not device_pipeline:
-            raise _not_ported("the host-predict build (device_pipeline=False)",
-                              "host-predict discretization route")
-        if cross_validation_groups:
-            raise _not_ported("block validation", "validation and bootstrap")
         if not stratified:
             raise _not_ported("aggregated clustering", "aggregated clustering")
         if profile_dir is not None:
             raise _not_ported("profiler traces (profile_dir)", "tracing")
         timer = StageTimer()
         self.stage_timings = timer
+        self.device_pipeline = bool(device_pipeline)
         with live_stage_display(timer, enabled=show_live_display):
             self._run_build_pipeline(
                 timer, file_paths=file_paths, ref_struct=ref_struct,
@@ -591,6 +989,9 @@ class modelWE:
                 fluxmatrix_iters_to_use=fluxmatrix_iters_to_use,
                 step_kwargs=step_kwargs, max_coord_iter=max_coord_iter,
                 dedup_coordinates=dedup_coordinates,
+                cross_validation_groups=cross_validation_groups,
+                cross_validation_blocks=cross_validation_blocks,
+                allow_validation_failure=allow_validation_failure,
             )
         log.info("\n" + timer.report())
         return self
@@ -599,7 +1000,9 @@ class modelWE:
                             basis_pcoord_bounds, target_pcoord_bounds,
                             dimreduce_method, tau, n_clusters, streaming,
                             fluxmatrix_iters, fluxmatrix_iters_to_use,
-                            step_kwargs, max_coord_iter, dedup_coordinates):
+                            step_kwargs, max_coord_iter, dedup_coordinates,
+                            cross_validation_groups, cross_validation_blocks,
+                            allow_validation_failure):
         with timer.stage("Model initialization"):
             self.initialize(
                 file_paths, ref_struct, modelName,
@@ -620,6 +1023,7 @@ class modelWE:
         with timer.stage("Clustering"):
             self.cluster_coordinates(
                 n_clusters=n_clusters, streaming=streaming, stratified=True,
+                store_validation_model=cross_validation_groups > 0,
                 **step_kwargs.get("clustering", {}),
             )
         fm_iters = list(fluxmatrix_iters)
@@ -644,3 +1048,87 @@ class modelWE:
         with timer.stage("Steady-state target flux"):
             self.get_steady_state_target_flux()
             timer.set_note(f"JtargetSS={self.JtargetSS:.2e}")
+        if cross_validation_groups > 0:
+            with timer.stage("Cross-validation"):
+                try:
+                    self.do_block_validation(
+                        cross_validation_groups=cross_validation_groups,
+                        cross_validation_blocks=cross_validation_blocks,
+                        **step_kwargs.get("block_validation", {}),
+                    )
+                except modelWE.BlockValidationError as e:
+                    log.error(e)
+                    if not allow_validation_failure:
+                        raise
+
+    # ---------------------------------------------------------- checkpointing
+    _DEVICE_CACHES = ("_dev_feats_cache", "_pc_masks_cache")
+
+    def _state(self):
+        """The instance state without the caches derived from it (device
+        copies of the features, basis/target masks); they are rebuilt on
+        demand."""
+        state = self.__dict__.copy()
+        for key in self._DEVICE_CACHES:
+            state[key] = None
+        return state
+
+    def __getstate__(self):
+        """Pickle state on the CPU: a model saved from CUDA loads on a
+        machine without a GPU (``load`` moves it to a device)."""
+        state = self._state()
+        state["device"] = torch.device("cpu")
+        if hasattr(self.coordinates, "device"):
+            coords = copy.copy(self.coordinates)
+            coords.device = torch.device("cpu")
+            state["coordinates"] = coords
+        return state
+
+    def __deepcopy__(self, memo):
+        """A copy on the same device (``post_cluster_model`` and the
+        validation models keep their CUDA bank); only the caches are
+        dropped."""
+        new = self.__class__.__new__(self.__class__)
+        memo[id(self)] = new
+        new.__dict__.update(copy.deepcopy(self._state(), memo))
+        return new
+
+    def to(self, device):
+        """Move the model (its center bank, transform and the models it
+        holds for validation) to ``device``; returns ``self``."""
+        device = as_device(device)
+        self.device = device
+        for key in self._DEVICE_CACHES:
+            setattr(self, key, None)
+        if hasattr(self.coordinates, "device"):
+            self.coordinates.device = device
+        if self._strat is not None:
+            self._strat.to(device)
+        for m in [self.post_cluster_model, *getattr(self, "validation_models", [])]:
+            if m is not None:
+                m.to(device)
+        return self
+
+    def save(self, path):
+        """Pickle the full model (the reference's checkpoint format,
+        ``restart_driver.py:1139-1143``); tensors are stored on the CPU."""
+        import pickle
+
+        with open(path, "wb") as fp:
+            pickle.dump(self, fp, protocol=4)
+        log.info(f"Model saved to {path}")
+
+    @classmethod
+    def load(cls, path, device="cpu"):
+        """Unpickle a model saved by :meth:`save` onto ``device``. Unpickle
+        only files this program wrote: unpickling can run arbitrary code."""
+        import pickle
+
+        with open(path, "rb") as fp:
+            model = pickle.load(fp)
+        return model.to(device)
+
+
+# The reference defines BlockValidationError at module scope
+# (msm_we.py:60-61); keep both import paths
+BlockValidationError = modelWE.BlockValidationError

@@ -66,13 +66,32 @@ def masked_assign(X, seg_bin, C, center_bin, valid, n_bins=None):
     )
 
 
+def _segment_sums(values, idx, k):
+    """Per-center sums of ``values`` rows in an order fixed by the data:
+    rows are stably sorted by center id, then each center's run is reduced
+    by ``segment_reduce``, which assigns no two threads to one output (no
+    atomics). CUDA's ``index_add_`` adds in atomic order, so two runs on
+    the same inputs could differ in the last bits."""
+    idx_sorted, order = torch.sort(idx, stable=True)
+    lengths = torch.bincount(idx_sorted, minlength=k)
+    return torch.segment_reduce(values.index_select(0, order), "sum",
+                                lengths=lengths, axis=0, unsafe=True)
+
+
 def minibatch_update(centers, counts, X, w, idx):
     """Streaming (running weighted mean) center update. Rows with ``w == 0``
-    contribute exact zeros. Returns ``(new_centers, new_counts)``."""
+    contribute exact zeros. Returns ``(new_centers, new_counts)``.
+
+    On the CPU the sums are ``index_add_`` (serial, row order); on CUDA
+    they are :func:`_segment_sums`, so repeated builds are bitwise equal."""
     k = centers.shape[0]
     idx = idx.to(torch.int64)
-    wsum = torch.zeros(k, dtype=w.dtype, device=w.device).index_add_(0, idx, w)
-    xsum = torch.zeros_like(centers).index_add_(0, idx, X * w[:, None])
+    if idx.device.type == "cpu":
+        wsum = torch.zeros(k, dtype=w.dtype, device=w.device).index_add_(0, idx, w)
+        xsum = torch.zeros_like(centers).index_add_(0, idx, X * w[:, None])
+    else:
+        sums = _segment_sums(torch.cat([X * w[:, None], w[:, None]], dim=1), idx, k)
+        xsum, wsum = sums[:, :-1].contiguous(), sums[:, -1].contiguous()
     new_counts = counts + wsum
     # Exact divisor: a 1e-30 clamp collapses the running mean for
     # sub-clamp f32 weight totals (WE weights span hundreds of decades)

@@ -22,6 +22,8 @@ raises ``NotImplementedError`` (ROADMAP, queue 1).
 """
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
@@ -144,6 +146,32 @@ class StratifiedKmeans:
                 torch.as_tensor(self.counts, device=self.device).clone(),
             )
         return self._dev_state
+
+    def __getstate__(self):
+        """Pickle state on the CPU: device-resident centers/counts are
+        copied to the host arrays (the live object is left as it is)."""
+        state = self.__dict__.copy()
+        if self._dev_state is not None:
+            c, n = self._dev_state
+            state["centers"] = c.cpu().numpy().copy()
+            state["counts"] = n.cpu().numpy().copy()
+            state["_dev_state"] = None
+        state["device"] = torch.device("cpu")
+        return state
+
+    def __deepcopy__(self, memo):
+        """A copy on the same device, device-resident state included."""
+        new = self.__class__.__new__(self.__class__)
+        memo[id(self)] = new
+        new.__dict__.update(copy.deepcopy(self.__dict__, memo))
+        return new
+
+    def to(self, device):
+        """Move the bank to ``device`` (the device state is re-uploaded
+        from the host copies on next use)."""
+        self._sync_host()
+        self.device = as_device(device)
+        return self
 
     def _device_meta(self):
         """``center_bin``/``valid``/``initialized`` as device tensors."""
@@ -286,26 +314,40 @@ class StratifiedKmeans:
         )
 
     # ------------------------------------------------------------ prediction
+    @staticmethod
+    def scores_on_host(n_rows):
+        """The scoring family of a batch of ``n_rows``: the host numpy
+        formula under ``HOST_BATCH_THRESHOLD`` rows, else the masked
+        assignment on the bank's device (H4 on CUDA). The two families can
+        round near-ties differently."""
+        return n_rows < HOST_BATCH_THRESHOLD
+
+    def assign_flat(self, X, eff_bins, on_host):
+        """Flat bank index of the nearest valid same-bin center per row of
+        ``X`` (``eff_bins`` already remapped), in the family ``on_host``
+        names (:meth:`scores_on_host`)."""
+        X = np.asarray(X, np.float32)
+        eff_bins = np.asarray(eff_bins)
+        if on_host:
+            self._sync_host()
+            return _np_masked_assign(
+                X, eff_bins, self.centers, self.center_bin, self.valid
+            )
+        centers_d, _counts_d = self._device_state()
+        cb_d, valid_d, _init = self._device_meta()
+        return masked_assign(
+            torch.as_tensor(X, device=self.device),
+            torch.as_tensor(eff_bins.astype(np.int32), device=self.device),
+            centers_d, cb_d, valid_d, n_bins=self.n_bins,
+        ).cpu().numpy()
+
     def predict(self, X, seg_bins, is_basis=None, is_target=None):
         """Global cluster indices for features X in WE bins ``seg_bins``.
         Applies ``we_remap`` first; basis then target rows short-circuit to
         the two extra indices (target wins)."""
-        X = np.asarray(X, np.float32)
         seg_bins = self.we_remap[np.asarray(seg_bins)]
         self.check_live_bins(seg_bins)
-        if len(X) < HOST_BATCH_THRESHOLD:
-            self._sync_host()
-            flat = _np_masked_assign(
-                X, seg_bins, self.centers, self.center_bin, self.valid
-            )
-        else:
-            centers_d, _counts_d = self._device_state()
-            cb_d, valid_d, _init = self._device_meta()
-            flat = masked_assign(
-                torch.as_tensor(X, device=self.device),
-                torch.as_tensor(seg_bins.astype(np.int32), device=self.device),
-                centers_d, cb_d, valid_d, n_bins=self.n_bins,
-            ).cpu().numpy()
+        flat = self.assign_flat(X, seg_bins, self.scores_on_host(len(X)))
         out = self.global_id[flat]
         if is_basis is not None:
             out = np.where(np.asarray(is_basis), self.basis_cluster_index, out)

@@ -248,8 +248,6 @@ def test_device_family_seeding_is_not_ported():
 @pytest.mark.parametrize("change", [
     dict(dimreduce_method="tica"),
     dict(stratified=False),
-    dict(cross_validation_groups=2),
-    dict(device_pipeline=False),
     dict(profile_dir="trace"),
 ])
 def test_unported_configurations_raise(arrays, change):
@@ -258,13 +256,15 @@ def test_unported_configurations_raise(arrays, change):
 
 
 def test_west_h5_paths_and_lagged_flux_raise(west_h5, arrays):
+    """west.h5 paths are not ported; a lag with no usable history raises
+    as in the JAX package (lagged flux itself: test_torch_analysis.py)."""
     with pytest.raises(NotImplementedError, match="westh5"):
         modelWE().initialize([west_h5], COMMON["ref_struct"], "x",
                              basis_pcoord_bounds=[[9.0, 10.0]],
                              target_pcoord_bounds=[[0.0, 1.0]])
     m = _port_build(arrays, True)
-    with pytest.raises(NotImplementedError, match="lagged"):
-        m.get_fluxMatrix(1)
+    with pytest.raises(ValueError, match="enough history"):
+        m.get_fluxMatrix(N_ITER)
 
 
 def test_port_imports_no_jax_h5py_or_networkx():
@@ -279,19 +279,24 @@ def test_port_imports_no_jax_h5py_or_networkx():
         from msm_we_tpu_torch import (ArrayWEDataset, RectilinearBinMapper,
                                       generate_we_arrays, modelWE)
         import msm_we_tpu_torch.entry, msm_we_tpu_torch.convert
+        from msm_we_tpu_torch.msm import MatrixFPT
         m = modelWE(device="cpu")
         m.build_analyze_model(
-            file_paths=ArrayWEDataset(generate_we_arrays(8, 24, seed=5)),
+            file_paths=ArrayWEDataset(generate_we_arrays(12, 32, seed=17)),
             ref_struct={{"coords": None, "nAtoms": 4, "coord_ndim": 3}},
             modelName="iso", basis_pcoord_bounds=[[9.0, 10.0]],
             target_pcoord_bounds=[[0.0, 1.0]], dimreduce_method="pca",
-            tau=1.0, n_clusters=2, cross_validation_groups=0,
-            show_live_display=False, device_pipeline=True,
+            tau=1.0, n_clusters=3, show_live_display=False,
             step_kwargs={{"clustering": {{
                 "user_bin_mapper": RectilinearBinMapper([np.linspace(0, 10, 13)]),
                 "scan_small_batches": True}}}},
         )
-        assert m.JtargetSS > 0
+        assert m.JtargetSS > 0 and len(m.validation_models) == 2
+        m.get_committor()
+        m.get_implied_timescales()
+        m.bootstrap_target_flux(n_boot=5)
+        MatrixFPT.fpt_distribution(m.Tmatrix, [0], [m.nBins - 1], [1.0],
+                                   max_n_lags=5, engine="device", device="cpu")
         loaded = [n for n in ("jax", "msm_we_tpu", "h5py", "networkx", "rich")
                   if n in sys.modules]
         print("LOADED", loaded)
