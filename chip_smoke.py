@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``msm_we_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases device,build,kernels,main,analysis] [--out DIR]
+    python3 chip_smoke.py [--phases device,build,kernels,main,analysis,configs] [--out DIR]
 
 Phases, each printing one JSON line:
 
@@ -26,6 +26,19 @@ Phases, each printing one JSON line:
    default build on the GPU against the CPU at 30 x 200 (and two GPU
    builds bitwise equal), and both f64 FPT device engines against the
    host engines (1,000 states) and alone (2,500 states).
+6. ``configs``: the build's other configurations. (a) Device-family
+   seeding (``seed_bins_batched``, 12 bins x 16,384 rows) on the card
+   against the CPU: equal k-means++ rows, centers and weight sums within
+   rtol 1e-5, two card runs bitwise equal. (b) The default build on
+   11 iterations x 100,000 segments (8 stacked replicas of 12,500), cold
+   then warm: bins seed through the device family, the two builds are
+   bitwise equal. (c) The default build with aggregated k-means (300
+   clusters) on the ``analysis`` data, then against the CPU at 30 x 200.
+   (d) TICA and VAMP fits at 100 atoms (300 raw features, device f32
+   pair moments) against the CPU f64 fits (their outputs exceed the
+   kernel's 128 features, so those builds must raise), then TICA, VAMP
+   and batch-PCA builds at 40 atoms (120 features). Launch counts are
+   reset before each build of (b)-(d); H4 must launch in each.
 
 The line before the last is the ``{"kernels": [...]}`` summary and the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -42,7 +55,7 @@ import sys
 import time
 from pathlib import Path
 
-PHASES = ("device", "build", "kernels", "main", "analysis")
+PHASES = ("device", "build", "kernels", "main", "analysis", "configs")
 
 KERNEL_INFO = {
     "transform_assign_child": dict(
@@ -483,7 +496,8 @@ def phase_main(args, summary):
 # -------------------------------------------------------------- analysis
 
 
-def _default_build(data, device, n_clusters=25):
+def _default_build(data, device, n_clusters=25, n_atoms=4, dimreduce_method="pca",
+                   stratified=True, dim_reduce_kwargs=None):
     """``build_analyze_model`` with its defaults (block cross-validation,
     2 groups x 4 blocks; predict route) in the bench configuration."""
     import numpy as np
@@ -493,21 +507,25 @@ def _default_build(data, device, n_clusters=25):
     from msm_we_tpu_torch.model import modelWE
 
     model = modelWE(device=device)
+    step_kwargs = {"dimReduce": dim_reduce_kwargs or {}}
+    if stratified:
+        step_kwargs["clustering"] = {
+            "user_bin_mapper": RectilinearBinMapper([np.linspace(0, 10, 13)]),
+            "scan_small_batches": True,
+        }
     t0 = time.perf_counter()
     model.build_analyze_model(
         file_paths=ArrayWEDataset(data),
-        ref_struct={"coords": None, "nAtoms": 4, "coord_ndim": 3},
+        ref_struct={"coords": None, "nAtoms": n_atoms, "coord_ndim": 3},
         modelName="smoke",
         basis_pcoord_bounds=[[9.0, 10.0]],
         target_pcoord_bounds=[[0.0, 1.0]],
-        dimreduce_method="pca",
+        dimreduce_method=dimreduce_method,
         tau=1.0,
         n_clusters=n_clusters,
+        stratified=stratified,
         show_live_display=False,
-        step_kwargs={"clustering": {
-            "user_bin_mapper": RectilinearBinMapper([np.linspace(0, 10, 13)]),
-            "scan_small_batches": True,
-        }},
+        step_kwargs=step_kwargs,
     )
     return time.perf_counter() - t0, model
 
@@ -776,6 +794,7 @@ def phase_analysis(args, summary):
     secs, model = _default_build(data, "cuda")
     torch.cuda.synchronize()
     counts = sa.launch_counts()
+    summary["analysis_data"] = data  # reused by the configs phase
     del data
     names = [n for n, _s, _note in model.stage_timings.stages]
     jv = [float(v.JtargetSS) for v in model.validation_models]
@@ -801,6 +820,301 @@ def phase_analysis(args, summary):
     # ---- (d) FPT engines
     for line in _fpt_checks():
         emit(dict(phase="analysis_fpt", **line))
+
+
+# --------------------------------------------------------------- configs
+
+
+def _stages(model):
+    return {n: s for n, s, _note in model.stage_timings.stages}
+
+
+def _seeding_check():
+    """(a) ``seed_bins_batched`` on the card against the CPU: 12 bins x
+    16,384 rows (the last 20% zero-weight outliers), d = 5, k = 25, seeds
+    17 + b. The live rows are 25 tight blobs per bin, so Lloyd's
+    assignments have no near-ties and the two devices' f32 sums may differ
+    only in rounding."""
+    import numpy as np
+    import torch
+
+    from msm_we_tpu_torch.ops.kmeans import seed_bins_batched
+
+    B, P, d, k = 12, 16_384, 5, 25
+    live = P - P // 5
+    rng = np.random.default_rng(17)
+    Xs = np.empty((B, P, d), np.float32)
+    ws = np.zeros((B, P), np.float32)
+    for b in range(B):
+        means = rng.normal(size=(k, d)) * 4.0
+        Xs[b, :live] = means[rng.integers(0, k, live)] + 0.05 * rng.normal(size=(live, d))
+        Xs[b, live:] = 50.0 + rng.normal(size=(P - live, d))
+        ws[b, :live] = rng.uniform(0.1, 1.0, live)
+    seeds = [17 + b for b in range(B)]
+    cpu_s, (packed_c, idx_c) = _timed(lambda: seed_bins_batched(
+        seeds, torch.as_tensor(Xs), torch.as_tensor(ws), k, return_index=True))
+    Xd, wd = torch.as_tensor(Xs, device="cuda"), torch.as_tensor(ws, device="cuda")
+
+    def on_card():
+        out = seed_bins_batched(seeds, Xd, wd, k, return_index=True)
+        torch.cuda.synchronize()
+        return out
+
+    first_s, (packed_g, idx_g) = _timed(on_card)
+    cuda_s, (packed_g2, idx_g2) = _timed(on_card)
+    idx_g, idx_c = idx_g.cpu().numpy(), idx_c.numpy()
+    require(np.array_equal(idx_g, idx_c), "k-means++ rows differ between the card and the CPU")
+    require((np.take_along_axis(ws, idx_g, axis=1) > 0).all(),
+            "k-means++ chose a zero-weight row")
+    require(torch.equal(packed_g, packed_g2) and torch.equal(idx_g2.cpu(), torch.as_tensor(idx_g)),
+            "two seedings on the card are not bitwise equal")
+    g, c = packed_g.cpu().numpy(), packed_c.numpy()
+    scale = float(np.abs(c[..., :-1]).max())
+    center_err = float(np.abs(g[..., :-1] - c[..., :-1]).max())
+    wsum_rel = float(np.max(np.abs(g[..., -1] - c[..., -1]) / np.abs(c[..., -1]).clip(1e-30)))
+    np.testing.assert_allclose(g[..., :-1], c[..., :-1], rtol=1e-5, atol=1e-5 * scale)
+    np.testing.assert_allclose(g[..., -1], c[..., -1], rtol=1e-5)
+    return dict(check="seeding", bins=B, rows_per_bin=P, zero_weight_rows=P - live,
+                k=k, d=d, kmeanspp_rows_equal=True, cuda_bitwise_repeat=True,
+                max_abs_center_err=center_err, max_rel_wsum_err=wsum_rel,
+                cuda_first_s=first_s, cuda_s=cuda_s, cpu_s=cpu_s)
+
+
+def _first_batch_members(data, edges):
+    """Iteration 1's training members per WE bin (parent pcoord; basis,
+    target and zero-weight rows excluded), the rows a first seeding batch
+    holds."""
+    import numpy as np
+
+    d0 = data[0]
+    x = np.asarray(d0["pcoords"])[:, 0, 0]
+    keep = ~((x > 0.0) & (x < 1.0)) & ~((x > 9.0) & (x < 10.0)) & (d0["weights"] > 0)
+    bins = np.clip(np.digitize(x[keep], edges) - 1, 0, len(edges) - 2)
+    return np.bincount(bins, minlength=len(edges) - 1).tolist()
+
+
+def _bitwise_equal_builds(a, b):
+    import numpy as np
+
+    return (np.array_equal(np.concatenate(a.dtrajs), np.concatenate(b.dtrajs))
+            and a.JtargetSS == b.JtargetSS
+            and [v.JtargetSS for v in a.validation_models]
+            == [v.JtargetSS for v in b.validation_models])
+
+
+def _counted(fn):
+    """``fn()`` with every launch count reset first; returns (result,
+    counts)."""
+    import torch
+
+    from msm_we_tpu_torch.ops import stratified_assign as sa
+
+    torch.cuda.synchronize()
+    sa.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, sa.launch_counts()
+
+
+def _check_build(name, model, counts):
+    import numpy as np
+
+    jv = [float(v.JtargetSS) for v in model.validation_models]
+    require(counts["pair_assign"] > 0, f"{name}: pair_assign never launched")
+    require(np.isfinite(model.JtargetSS) and model.JtargetSS > 0,
+            f"{name}: JtargetSS = {model.JtargetSS}")
+    require(len(jv) == 2 and all(np.isfinite(jv)) and min(jv) > 0,
+            f"{name}: validation JtargetSS {jv}")
+    return jv
+
+
+def _wide_build():
+    """(b) The default build on 11 x 100,000 segments, cold then warm."""
+    import numpy as np
+
+    from msm_we_tpu_torch.data import generate_we_replicas
+
+    t0 = time.perf_counter()
+    data = generate_we_replicas(n_iterations=11, n_segments=12_500, n_replicas=8,
+                                seed=17, processes=8)
+    gen_s = time.perf_counter() - t0
+    members = _first_batch_members(data, np.linspace(0, 10, 13))
+    (cold_s, cold), counts_cold = _counted(lambda: _default_build(data, "cuda"))
+    (warm_s, warm), counts = _counted(lambda: _default_build(data, "cuda"))
+    jv = _check_build("wide build", warm, counts)
+    families = warm._strat.seeded_by_family
+    require(families["device"] >= 1, f"no bin seeded through the device family: {families}")
+    require(_bitwise_equal_builds(cold, warm), "cold and warm wide builds are not bitwise equal")
+    line = dict(check="wide_build", iterations=11, segments_per_iteration=len(data[0]["weights"]),
+                replicas=8, generate_s=gen_s, first_batch_members_per_bin=members,
+                seeded_by_family=families, seconds_cold=cold_s, seconds_warm=warm_s,
+                cold_warm_bitwise_equal=True, stages=_stages(warm),
+                clusters_before=int(warm.fluxMatrixRaw.shape[0]),
+                clusters_after=int(warm.fluxMatrix.shape[0]),
+                JtargetSS=float(warm.JtargetSS), validation_JtargetSS=jv,
+                launch_counts=counts, launch_counts_cold=counts_cold)
+    return line, counts
+
+
+def _aggregated_parity():
+    """(c) The aggregated default build on the card against the CPU at
+    30 x 200: equal k-means++ rows; JtargetSS, validation JtargetSS and
+    the flux to 1e-8 when no dtraj row flips (else only near-tie flips)."""
+    import numpy as np
+
+    from msm_we_tpu_torch.data import generate_we_arrays
+
+    small = generate_we_arrays(n_iterations=30, n_segments=200, seed=17)
+    _t, g = _default_build(small, "cuda", n_clusters=300, stratified=False)
+    _t, c = _default_build(small, "cpu", n_clusters=300, stratified=False)
+    require(np.array_equal(g.kmeans_init_index, c.kmeans_init_index),
+            "aggregated k-means++ rows differ between the card and the CPU")
+    dg, dc = np.concatenate(g.dtrajs), np.concatenate(c.dtrajs)
+    flips = int((dg != dc).sum())
+    res = dict(check="aggregated_parity", rows=int(len(dc)), kmeanspp_rows_equal=True,
+               dtraj_flips=flips, JtargetSS_gpu=float(g.JtargetSS),
+               JtargetSS_cpu=float(c.JtargetSS))
+    if flips:
+        require(flips <= 1e-3 * len(dc), f"{flips} dtraj rows flip GPU vs CPU")
+        require(abs(g.JtargetSS - c.JtargetSS) <= 1e-3 * abs(c.JtargetSS),
+                "aggregated JtargetSS differs between GPU and CPU builds")
+        return res
+    errs = {}
+    for what, a, b in (
+        ("JtargetSS", g.JtargetSS, c.JtargetSS),
+        ("validation_JtargetSS", [v.JtargetSS for v in g.validation_models],
+         [v.JtargetSS for v in c.validation_models]),
+        ("fluxMatrixRaw", g.fluxMatrixRaw, c.fluxMatrixRaw),
+        ("fluxMatrix", g.fluxMatrix, c.fluxMatrix),
+    ):
+        a, b = np.asarray(a, float), np.asarray(b, float)
+        require(a.shape == b.shape, f"aggregated {what} shapes differ")
+        errs[what] = _rel_err(a, b)
+        require(errs[what] <= 1e-8, f"aggregated {what} differs GPU vs CPU by {errs[what]}")
+    res["max_rel_err"] = errs
+    return res
+
+
+def _aggregated_build(data):
+    """(c) The aggregated default build (300 clusters) on the analysis
+    phase's 101 x 10,000 run (generated here when that phase did not
+    run)."""
+    from msm_we_tpu_torch.data import generate_we_arrays
+
+    if data is None:
+        data = generate_we_arrays(n_iterations=101, n_segments=10_000, seed=17)
+    (secs, model), counts = _counted(
+        lambda: _default_build(data, "cuda", n_clusters=300, stratified=False))
+    jv = _check_build("aggregated build", model, counts)
+    line = dict(check="aggregated_build", segments=int(sum(len(d) for d in model.dtrajs)),
+                n_clusters=300, seconds=secs, stages=_stages(model),
+                clusters_before=int(model.fluxMatrixRaw.shape[0]),
+                clusters_after=int(model.fluxMatrix.shape[0]),
+                JtargetSS=float(model.JtargetSS), validation_JtargetSS=jv,
+                launch_counts=counts)
+    return line, counts
+
+
+def _reduction_fit(data, n_atoms, method, device, **kw):
+    """``dimReduce`` alone with ``method`` on ``device``; returns the model."""
+    from msm_we_tpu_torch.data import ArrayWEDataset
+    from msm_we_tpu_torch.model import modelWE
+
+    m = modelWE(device=device)
+    m.initialize(ArrayWEDataset(data), {"coords": None, "nAtoms": n_atoms, "coord_ndim": 3},
+                 "fit", basis_pcoord_bounds=[[9.0, 10.0]],
+                 target_pcoord_bounds=[[0.0, 1.0]], dim_reduce_method=method, tau=1.0)
+    m.get_iterations()
+    m.dimReduce(**kw)
+    return m
+
+
+def _fit_error(method, got, want):
+    """Largest difference of the fitted spectra (``scales_`` for TICA/VAMP,
+    ``explained_variance_`` for batch PCA) from the CPU f64 fit."""
+    import numpy as np
+
+    attr = "explained_variance_" if method == "batch-pca" else "scales_"
+    a, b = getattr(got.coordinates, attr), getattr(want.coordinates, attr)
+    # The variance cutoff may fall one component apart where f32 rounding
+    # moves a cumulative ratio across it; compare the common components
+    n = min(len(a), len(b))
+    require(abs(len(a) - len(b)) <= 1, f"{method}: {len(a)} vs {len(b)} components")
+    err = float(np.abs(a[:n] - b[:n]).max())
+    tol = 2e-4 + (1e-5 * float(np.abs(b).max()) if method == "batch-pca" else 0.0)
+    require(err <= tol, f"{method} spectrum differs from the f64 fit by {err}")
+    return err
+
+
+def _reduction_builds():
+    """(d) TICA and VAMP fits at 100 atoms (300 raw features: the device
+    f32 pair moments), each against the CPU f64 fit; at that width their
+    outputs exceed the 128 features the kernel holds per row, so the
+    build must raise ``NotImplementedError``. Then TICA, VAMP and batch
+    PCA builds at 40 atoms (120 raw features, device moments forced;
+    batch PCA keeps every component), each fit against the CPU f64 fit."""
+    from msm_we_tpu_torch.data import SynthWESettings, generate_trajectory_arrays
+
+    def make(n_atoms):
+        return generate_trajectory_arrays(SynthWESettings(
+            n_iterations=102, n_segments=1_000, n_atoms=n_atoms, seed=17, warmup=20))
+
+    lines, total = [], {}
+    gen_s, wide = _timed(lambda: make(100))
+    for method in ("tica", "vamp"):
+        fit_s, g = _timed(lambda: _reduction_fit(wide, 100, method, "cuda"))
+        c = _reduction_fit(wide, 100, method, "cpu", device_moments=False)
+        err = _fit_error(method, g, c)
+        raised = None
+        try:
+            _default_build(wide, "cuda", n_atoms=100, dimreduce_method=method)
+        except NotImplementedError as e:
+            raised = str(e)
+        require(g.ndim <= 128 or raised is not None,
+                f"{method}: a {g.ndim}-feature build did not raise on the card")
+        lines.append(dict(check="reduction_fit", method=method, n_atoms=100,
+                          raw_features=300, device_moments=True, ndim=int(g.ndim),
+                          generate_s=gen_s, fit_s=fit_s, max_abs_err_vs_f64=err,
+                          build_raised=raised))
+    del wide
+    gen_s, data = _timed(lambda: make(40))
+    for method in ("tica", "vamp", "batch-pca"):
+        dim_kw = {"device_moments": True}
+        (secs, model), counts = _counted(lambda: _default_build(
+            data, "cuda", n_atoms=40, dimreduce_method=method, dim_reduce_kwargs=dim_kw))
+        jv = _check_build(f"{method} build", model, counts)
+        ref = _reduction_fit(data, 40, method, "cpu", device_moments=False)
+        err = _fit_error(method, model, ref)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        lines.append(dict(check="reduction_build", method=method, n_atoms=40,
+                          raw_features=120, device_moments=True, ndim=int(model.ndim),
+                          generate_s=gen_s, seconds=secs, stages=_stages(model),
+                          max_abs_err_vs_f64=err, JtargetSS=float(model.JtargetSS),
+                          validation_JtargetSS=jv, launch_counts=counts))
+    return lines, total
+
+
+def phase_configs(args, summary):
+    """The build's other configurations: device-family seeding, a wide
+    stratified build, aggregated k-means, TICA/VAMP/batch PCA."""
+    emit(dict(phase="configs", **_seeding_check()))
+    total = {}
+    line, counts = _wide_build()
+    emit(dict(phase="configs", **line))
+    runs = [counts]
+    line, counts = _aggregated_build(summary.pop("analysis_data", None))
+    emit(dict(phase="configs", **line))
+    runs.append(counts)
+    emit(dict(phase="configs", **_aggregated_parity()))
+    lines, counts = _reduction_builds()
+    for line in lines:
+        emit(dict(phase="configs", **line))
+    runs.append(counts)
+    for c in runs:
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    summary["launches_configs"] = total
 
 
 # -------------------------------------------------------------------- run
@@ -861,9 +1175,12 @@ def main(argv=None):
         phase_main(args, summary)
     if "analysis" in phases:
         phase_analysis(args, summary)
+    if "configs" in phases:
+        phase_configs(args, summary)
 
     launches = summary.get("launches", {})
     launches_analysis = summary.get("launches_analysis", {})
+    launches_configs = summary.get("launches_configs", {})
     kernels = []
     for name, info in KERNEL_INFO.items():
         k = summary.get(name, {})
@@ -871,6 +1188,7 @@ def main(argv=None):
             name=name, route="cuda", source=SOURCE,
             replaces=info["replaces"], launches=launches.get(name),
             launches_analysis=launches_analysis.get(name),
+            launches_configs=launches_configs.get(name),
             max_abs_err=k.get("max_abs_err"), ms=k.get("ms"),
             plain_ms=k.get("plain_ms"),
         ))

@@ -2,10 +2,10 @@
 re-discretization, empty-bin remapping, and the clean-until-fixpoint loop.
 
 Counterpart of ``organize_flux_cleaning``, ``organize_stratified``,
-``incremental_rediscretize`` and ``assign_rows_subset`` in
-``msm_we_tpu/cleaning.py``. The rows a pass must re-score are assigned on
-the model's device (the H4-family kernel on CUDA); the per-pass flux
-recompute is the host f64 bincount.
+``incremental_rediscretize``, ``assign_rows_subset`` and
+``organize_aggregated_simple`` in ``msm_we_tpu/cleaning.py``. The rows a
+pass must re-score are assigned on the model's device (the H4-family
+kernel on CUDA); the per-pass flux recompute is the host f64 bincount.
 """
 from __future__ import annotations
 
@@ -175,3 +175,47 @@ def assign_rows_subset(model, strat, X, bins_eff):
     near-ties differently, and incremental cleaning must equal a full
     re-discretization."""
     return strat.global_id[strat.assign_flat(X, bins_eff, model._scored_on_host)]
+
+
+def organize_aggregated_simple(model, max_passes=10, incremental=True):
+    """Aggregate-path cleaning: the SCC criterion of
+    :func:`organize_flux_cleaning` applied to the aggregate bank (the
+    reference's ``organize_aggregated`` is deprecated and raises,
+    ``_fluxmatrix.py:452-454``).
+
+    ``incremental`` (default): survivors relabel through the old -> new id
+    map (removing centers a row did not win cannot change its argmin);
+    only rows assigned to a removed center are re-scored against the kept
+    bank. ``incremental=False`` re-discretizes every row; both give
+    identical ids."""
+    from .model import _AggregateClustersShim
+
+    def remove_and_rediscretize(states_to_remove):
+        old_n = model.n_clusters
+        keep = np.setdiff1d(np.arange(old_n), states_to_remove)
+        relabel = np.full(old_n, -1, np.int64)
+        relabel[keep] = np.arange(len(keep))
+        model.removed_clusters = states_to_remove
+        model.clusters = _AggregateClustersShim(
+            model.clusters.cluster_centers_[keep], device=model.device
+        )
+        model.n_clusters = len(keep)
+        if not incremental or model._parent_idx is None:
+            model._discretize_all_aggregated()
+        elif len(keep) < old_n:
+            feats = model._featurize_all()
+
+            def upd(idx, rows_of):
+                new_idx = relabel[idx]
+                aff = np.flatnonzero(new_idx < 0)
+                if len(aff):
+                    new_idx[aff] = model.clusters.predict(rows_of(aff))
+                return new_idx
+
+            model._store_dtrajs(
+                upd(model._parent_idx, lambda r: _feat_parent_rows(feats, r)),
+                upd(model._child_idx, lambda r: feats["child"][r]),
+            )
+
+    organize_flux_cleaning(model, remove_and_rediscretize, max_passes=max_passes)
+    model.removed_clusters = []

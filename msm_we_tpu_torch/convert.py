@@ -5,18 +5,59 @@
 stratified center bank and the WE bin mapper -- from numpy arrays, so a
 build's later stages (discretization -> flux -> cleaning -> analysis) can
 run from the fitted state of another build, for example the JAX package's.
-It takes numpy arrays only.
+``tica_state_from_arrays`` installs a fitted TICA/VAMP transform and
+``aggregated_state_from_arrays`` an aggregated k-means bank the same way.
+They take numpy arrays only.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from .binning import RectilinearBinMapper
-from .model import StratifiedClustersShim
-from .ops.pca import PCAModel
+from .model import StratifiedClustersShim, _AggregateClustersShim
+from .ops.pca import PCAModel, TICAModel
 from .ops.stratified import StratifiedKmeans
 
-__all__ = ["fitted_state_from_arrays"]
+__all__ = [
+    "fitted_state_from_arrays",
+    "tica_state_from_arrays",
+    "aggregated_state_from_arrays",
+]
+
+
+def _drop_derived(model):
+    """Forget features, their caches and the dtrajs (the transform or the
+    bank changed): they are recomputed on next use."""
+    model._features = None
+    model._raw_bins_cache = None
+    model._pc_masks_cache = None
+    model._dev_feats_cache = None
+    model.dtrajs = model.pair_dtrajs = None
+    model._parent_idx = model._child_idx = None
+
+
+def tica_state_from_arrays(model, *, mean, components, scales):
+    """Install a fitted TICA/VAMP transform (``mean`` (D,), ``components``
+    (D, n), ``scales`` (n,)) as ``dimReduce`` would leave it."""
+    model.coordinates = TICAModel(np.asarray(mean), np.asarray(components),
+                                  np.asarray(scales), device=model.device)
+    model.ndim = model.coordinates.output_dimension
+    _drop_derived(model)
+    return model
+
+
+def aggregated_state_from_arrays(model, *, centers):
+    """Install an aggregated k-means bank (``centers`` (K, d)) as
+    ``cluster_coordinates(stratified=False)`` would leave it before its
+    discretization. Call ``model.launch_discretization()`` next."""
+    centers = np.asarray(centers, np.float32)
+    model.clusters = _AggregateClustersShim(centers, device=model.device)
+    model.clustering_method = "aggregated"
+    model.n_clusters = len(centers)
+    model._strat = None
+    model._bin_mapper = None
+    _drop_derived(model)
+    return model
 
 
 def fitted_state_from_arrays(model, *, pca_mean, pca_components,
@@ -67,10 +108,5 @@ def fitted_state_from_arrays(model, *, pca_mean, pca_components,
     model.clustering_method = "stratified"
     model.n_clusters = n_bins * k
     # Features follow the transform: recompute on next use
-    model._features = None
-    model._raw_bins_cache = None
-    model._pc_masks_cache = None
-    model._dev_feats_cache = None
-    model.dtrajs = model.pair_dtrajs = None
-    model._parent_idx = model._child_idx = None
+    _drop_derived(model)
     return model

@@ -11,7 +11,13 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["SynthWESettings", "generate_trajectory_arrays", "generate_we_arrays"]
+__all__ = [
+    "SynthWESettings",
+    "generate_trajectory_arrays",
+    "generate_we_arrays",
+    "generate_we_replicas",
+    "stack_we_runs",
+]
 
 
 class SynthWESettings:
@@ -239,3 +245,51 @@ def generate_we_arrays(n_iterations=50, n_segments=32, seed=0, warmup=20):
             warmup=warmup,
         )
     )
+
+
+def stack_we_runs(runs):
+    """One WE dataset from independent runs side by side: iteration ``i``
+    holds every run's segments of iteration ``i`` in run order, parent ids
+    shifted to the run's block of the previous iteration, weights divided
+    by the number of runs (each iteration still sums to 1)."""
+    n_runs = len(runs)
+    if len({len(r) for r in runs}) != 1:
+        raise ValueError("the runs must have the same number of iterations")
+    stacked = []
+    prev_offsets = np.zeros(n_runs, np.int64)
+    for it in range(len(runs[0])):
+        parts = [r[it] for r in runs]
+        offsets = np.concatenate([[0], np.cumsum([len(p["weights"]) for p in parts])[:-1]])
+        parents = [
+            np.where(np.asarray(p["parent_ids"]) >= 0,
+                     np.asarray(p["parent_ids"]) + prev_offsets[r], p["parent_ids"])
+            for r, p in enumerate(parts)
+        ]
+        stacked.append(dict(
+            weights=np.concatenate([p["weights"] for p in parts]) / n_runs,
+            parent_ids=np.concatenate(parents),
+            pcoords=np.concatenate([p["pcoords"] for p in parts]),
+            coords=np.concatenate([p["coords"] for p in parts]),
+            recycled=np.concatenate([p["recycled"] for p in parts]),
+        ))
+        prev_offsets = offsets
+    return stacked
+
+
+def generate_we_replicas(n_iterations, n_segments, n_replicas, seed=0, warmup=20,
+                         processes=1):
+    """``n_replicas`` independent runs of :func:`generate_we_arrays` (seeds
+    ``seed .. seed + n_replicas - 1``, ``n_segments`` each), stacked by
+    :func:`stack_we_runs` into one run of ``n_replicas * n_segments``
+    segments per iteration. The generator's split/merge resampling costs
+    grow faster than linearly with the walkers per bin, so a wide
+    iteration is made of replicas, generated in ``processes`` worker
+    processes (started and stopped here)."""
+    args = [(n_iterations, n_segments, seed + r, warmup) for r in range(n_replicas)]
+    if processes <= 1:
+        return stack_we_runs([generate_we_arrays(*a) for a in args])
+    import multiprocessing
+
+    with multiprocessing.get_context("spawn").Pool(processes) as pool:
+        runs = pool.starmap(generate_we_arrays, args)
+    return stack_we_runs(runs)

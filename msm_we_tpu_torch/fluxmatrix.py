@@ -85,11 +85,12 @@ def _lag0_ids(model, feats, masks, iters_to_use):
     weights = feats["weights"][sel]
     start_idx = np.asarray(model._parent_idx[sel], dtype=np.int64)
     end_idx = np.asarray(model._child_idx[sel], dtype=np.int64)
+    stratified = model.clustering_method == "stratified"
     strat = model._strat
-    if model.n_clusters == strat.n_total_clusters:
-        # Stored dtrajs carry the predict-order overrides (target wins) in
-        # the current numbering; the flux build's basis-wins order differs
-        # only on rows inside both regions
+    if stratified and strat is not None and model.n_clusters == strat.n_total_clusters:
+        # Stored stratified dtrajs carry the predict-order overrides (target
+        # wins) in the current numbering; the flux build's basis-wins order
+        # differs only on rows inside both regions
         if masks["overlap_p"] is not None:
             start_idx = start_idx.copy()
             start_idx[masks["overlap_p"][sel]] = model.n_clusters
@@ -97,10 +98,14 @@ def _lag0_ids(model, feats, masks, iters_to_use):
             end_idx = end_idx.copy()
             end_idx[masks["overlap_c"][sel]] = model.n_clusters
     else:
-        # Pre-cleaning the stored basis/target ids use the live total:
-        # re-apply the flux-order overrides at the nominal numbering
+        # Aggregated ids carry no overrides, and pre-cleaning stratified
+        # ids carry the live-total states: apply the flux-order overrides
+        # at the nominal numbering (end-in-target, start-in-target for
+        # stratified clustering only, then basis)
         end_idx = np.where(masks["target_c"][sel], model.n_clusters + 1, end_idx)
-        start_idx = np.where(masks["target_p"][sel], model.n_clusters + 1, start_idx)
+        if stratified:
+            start_idx = np.where(masks["target_p"][sel], model.n_clusters + 1,
+                                 start_idx)
         start_idx = np.where(masks["basis_p"][sel], model.n_clusters, start_idx)
         end_idx = np.where(masks["basis_c"][sel], model.n_clusters, end_idx)
     return start_idx, end_idx, weights
@@ -134,9 +139,11 @@ def _lagged_ids(model, feats, masks, iters_to_use, n_lag):
     basis_start = np.concatenate(b0s) | warped_all
     target_start = np.concatenate(t0s) & ~warped_all
     # Reference composition: end-in-target, start-in-target (nominal
-    # target index), then basis unconditionally (basis wins overlaps)
+    # target index; stratified clustering only), then basis unconditionally
+    # (basis wins overlaps)
     end_idx = np.where(np.concatenate(t1s), model.n_clusters + 1, end_idx)
-    start_idx = np.where(target_start, model.n_clusters + 1, start_idx)
+    if model.clustering_method == "stratified":
+        start_idx = np.where(target_start, model.n_clusters + 1, start_idx)
     start_idx = np.where(basis_start, model.n_clusters, start_idx)
     end_idx = np.where(np.concatenate(b1s), model.n_clusters, end_idx)
     return start_idx, end_idx, np.concatenate(ws)
@@ -156,11 +163,13 @@ def get_iter_flux_matrix(model, n_iter):
     end_idx = np.where(
         model.is_WE_target(d["pcoord1"]), model.n_clusters + 1, end_idx
     )
-    # Target-region parents go to the nominal target row before
-    # start-in-basis is applied (basis wins overlaps)
-    start_idx = np.where(
-        model.is_WE_target(d["pcoord0"]), model.n_clusters + 1, start_idx
-    )
+    # Stratified predict sends target-region parents to its own target id:
+    # route them to the nominal target row, before start-in-basis (basis
+    # wins overlaps). Aggregated ids carry no overrides.
+    if model.clustering_method == "stratified":
+        start_idx = np.where(
+            model.is_WE_target(d["pcoord0"]), model.n_clusters + 1, start_idx
+        )
     start_idx = np.where(model.is_WE_basis(d["pcoord0"]), model.n_clusters, start_idx)
     end_idx = np.where(model.is_WE_basis(d["pcoord1"]), model.n_clusters, end_idx)
     flat = start_idx.astype(np.int64) * n_states + end_idx.astype(np.int64)

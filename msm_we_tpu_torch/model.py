@@ -1,9 +1,10 @@
 """modelWE facade of the port: the haMSM build on one device.
 
 Counterpart of ``msm_we_tpu/model.py::modelWE``: the build
-``build_analyze_model`` (ingest -> PCA -> stratified k-means per WE bin ->
-discretize parent and child frames -> f64 flux matrix -> cleaning ->
-transition matrix -> steady state -> JtargetSS -> block cross-validation),
+``build_analyze_model`` (ingest -> PCA, TICA, VAMP or batch PCA ->
+stratified k-means per WE bin, or aggregated k-means -> discretize parent
+and child frames -> f64 flux matrix -> cleaning -> transition matrix ->
+steady state -> JtargetSS -> block cross-validation),
 lagged flux matrices, the analysis a user runs on a built model
 (committors, flux profiles, implied timescales, the Chapman-Kolmogorov
 test, the bootstrap confidence interval) and checkpointing. The attribute
@@ -12,9 +13,10 @@ names are the JAX package's (``fluxMatrixRaw``, ``fluxMatrix``, ``pSS``,
 ``validation_models``, ...).
 
 One device replaces the JAX package's mesh: ``modelWE(device=...)``. With
-CUDA the discretization, the streaming clustering scan and the cleaning
-re-assignments launch the hand-written kernels of
-``ops/stratified_assign.py``; with the CPU they run the plain versions.
+CUDA the discretization, the streaming clustering scan, the device-family
+seeding, the aggregated k-means and the cleaning re-assignments launch the
+hand-written kernels of ``ops/stratified_assign.py``; with the CPU they
+run the plain versions.
 ``device_pipeline`` picks the discretization route only: the pair route
 (``True``, parent and child rows in one pair launch) or the predict route
 (``False``, the default of ``build_analyze_model``: the 2N concatenated
@@ -42,10 +44,11 @@ from .binning import find_nearest_bin
 from .data.arrays import ArrayWEDataset
 from .features import device_row_feats, featurize_all
 from .ops import linalg
-from .ops.pca import IdentityCoordinates, MomentAccumulator
+from .ops.kmeans import assign_flat, kmeans_fit
+from .ops.pca import IdentityCoordinates, MomentAccumulator, PairMomentAccumulator
 from .ops.stratified import StratifiedKmeans
 
-SUPPORTED_DIMREDUCE = ["none", "pca"]
+SUPPORTED_DIMREDUCE = ["none", "pca", "tica", "vamp", "batch-pca"]
 
 
 def _not_ported(what, entry):
@@ -128,6 +131,25 @@ class StratifiedClustersShim:
         if self.toggle:
             self.processing_from = not self.processing_from
         return result
+
+
+class _AggregateClustersShim:
+    """Aggregate (non-stratified) k-means bank: ``cluster_centers_`` and an
+    sklearn-style ``predict`` through ``ops.kmeans.assign_flat`` on
+    ``device`` (the H4 kernel on CUDA)."""
+
+    def __init__(self, centers, device="cpu"):
+        self.cluster_centers_ = np.asarray(centers)
+        self.device = as_device(device)
+
+    def predict(self, X):
+        dev = self.device
+        ids = assign_flat(
+            torch.as_tensor(np.asarray(X, np.float32), device=dev),
+            torch.as_tensor(self.cluster_centers_.astype(np.float32), device=dev),
+            torch.ones(len(self.cluster_centers_), dtype=torch.bool, device=dev),
+        )
+        return ids.cpu().numpy().astype(np.int64)
 
 
 class modelWE:
@@ -252,9 +274,6 @@ class modelWE:
 
         if dim_reduce_method is None:
             dim_reduce_method = "pca"
-        if dim_reduce_method in ("tica", "vamp", "batch-pca"):
-            raise _not_ported(f"dim_reduce_method={dim_reduce_method!r}",
-                              "TICA/VAMP")
         if dim_reduce_method not in SUPPORTED_DIMREDUCE:
             raise ValueError(f"dim_reduce_method must be one of {SUPPORTED_DIMREDUCE}")
         self.dimReduceMethod = dim_reduce_method
@@ -443,45 +462,78 @@ class modelWE:
 
     # ------------------------------------------------- dimensionality reduce
     DEVICE_MOMENTS_MIN_DIM = 256
-    """Feature dimensionality from which the PCA second moments are f32
-    products on the device (combined across batches in f64)."""
+    """Feature dimensionality from which the second moments (PCA) and pair
+    moments (TICA/VAMP) are f32 products on the device (combined across
+    batches in f64)."""
 
     def dimReduce(self, first_iter=1, first_rough_iter=None, last_iter=None,
                   rough_stride=10, fine_stride=1, variance_cutoff=0.95,
                   use_weights=True, progress_bar=None, device_moments=None):
-        """Fit the PCA transform from streamed exact moments (reference
-        ``_dimensionality.py:110-345``)."""
+        """Fit the dimensionality-reduction transform (reference
+        ``_dimensionality.py:110-345``). ``pca`` from streamed exact moments
+        of the child frames; ``tica``/``vamp`` from (parent, child) pairs,
+        WE-weighted for ``tica`` only; ``batch-pca`` from the moments of
+        both frames, keeping every component. ``device_moments`` None picks
+        the device f32 moments from ``DEVICE_MOMENTS_MIN_DIM`` features."""
         if last_iter is None:
             last_iter = self.maxIter
-        if self.dimReduceMethod == "none":
+        method = self.dimReduceMethod
+        if method == "none":
             self.ndim = int(self.coord_ndim * self.nAtoms)
             self.coordinates = IdentityCoordinates()
             return
+
+        def moment_dtype(n_features):
+            on_device = (n_features >= self.DEVICE_MOMENTS_MIN_DIM
+                         if device_moments is None else bool(device_moments))
+            return np.float32 if on_device else np.float64
+
         acc = None
-        for i in range(first_iter, last_iter, fine_stride):
-            c = self._dataset.iter_child_coords(i)
-            if not c.shape[0]:
-                continue
-            feats = np.asarray(self.processCoordinates(c))
-            if acc is None:
-                on_device = (
-                    feats.shape[1] >= self.DEVICE_MOMENTS_MIN_DIM
-                    if device_moments is None else bool(device_moments)
-                )
-                acc = MomentAccumulator(
-                    feats.shape[1],
-                    dtype=np.float32 if on_device else np.float64,
-                    device=self.device,
-                )
-            acc.add(feats)
+        if method == "pca":
+            for i in range(first_iter, last_iter, fine_stride):
+                c = self._dataset.iter_child_coords(i)
+                if not c.shape[0]:
+                    continue
+                feats = np.asarray(self.processCoordinates(c))
+                if acc is None:
+                    acc = MomentAccumulator(feats.shape[1],
+                                            dtype=moment_dtype(feats.shape[1]),
+                                            device=self.device)
+                acc.add(feats)
+        else:
+            for i in range(first_iter, last_iter, fine_stride):
+                parent, child, weights = self._dataset.iter_coord_pairs(i)
+                good = np.flatnonzero(~(
+                    np.isnan(parent).any(axis=tuple(range(1, parent.ndim)))
+                    | np.isnan(child).any(axis=tuple(range(1, child.ndim)))
+                ))
+                if not len(good):
+                    continue
+                f0 = np.asarray(self.processCoordinates(parent[good]))
+                f1 = np.asarray(self.processCoordinates(child[good]))
+                if acc is None:
+                    cls = MomentAccumulator if method == "batch-pca" else PairMomentAccumulator
+                    acc = cls(f0.shape[1], dtype=moment_dtype(f0.shape[1]),
+                              device=self.device)
+                if method == "batch-pca":
+                    acc.add(f0)
+                    acc.add(f1)
+                else:
+                    acc.add(f0, f1, weights[good] if use_weights and method == "tica"
+                            else None)
         if acc is None:
             raise ValueError(
                 f"No usable coordinates in iterations [{first_iter}, "
                 f"{last_iter}) at stride {fine_stride}; cannot fit the "
                 "dimensionality reduction."
             )
-        self.coordinates = acc.finalize(variance_cutoff=variance_cutoff)
-        self.ndim = self.coordinates.n_components
+        if method in ("tica", "vamp"):
+            self.coordinates = acc.finalize(method=method, var_cutoff=variance_cutoff)
+            self.ndim = self.coordinates.output_dimension
+        else:
+            self.coordinates = acc.finalize(
+                variance_cutoff=1.0 if method == "batch-pca" else variance_cutoff)
+            self.ndim = self.coordinates.n_components
 
     def reduceCoordinates(self, coords):
         """processCoordinates then the fitted transform."""
@@ -503,18 +555,25 @@ class modelWE:
                             stratified=True, iters_to_use=None,
                             store_validation_model=False, progress_bar=None,
                             random_state=None, **_cluster_args):
-        """Stratified clustering (reference ``_clustering.py:142-195``).
-        ``store_validation_model`` keeps a deep copy of the clustered model
-        as ``post_cluster_model`` for block validation."""
-        if not stratified:
-            raise _not_ported("aggregated clustering", "aggregated clustering")
+        """Stratified clustering per WE bin, or with ``stratified=False``
+        aggregated k-means over all rows (reference
+        ``_clustering.py:142-195``). ``store_validation_model`` keeps a deep
+        copy of the clustered model as ``post_cluster_model`` for block
+        validation."""
         if random_state is not None:
             self._cluster_seed = int(random_state)
-        self.clustering_method = "stratified"
-        self.cluster_stratified(
-            n_clusters=n_clusters, first_cluster_iter=first_cluster_iter,
-            iters_to_use=iters_to_use, **_cluster_args,
-        )
+        if stratified:
+            self.clustering_method = "stratified"
+            self.cluster_stratified(
+                n_clusters=n_clusters, first_cluster_iter=first_cluster_iter,
+                iters_to_use=iters_to_use, **_cluster_args,
+            )
+        else:
+            self.clustering_method = "aggregated"
+            self.cluster_aggregated(
+                n_clusters=n_clusters, first_cluster_iter=first_cluster_iter,
+                iters_to_use=iters_to_use, **_cluster_args,
+            )
         if store_validation_model:
             self.post_cluster_model = copy.deepcopy(self)
 
@@ -527,6 +586,39 @@ class modelWE:
             first = first_cluster_iter if first_cluster_iter is not None else 1
             iters_to_use = range(first, self.maxIter)
         return list(iters_to_use)
+
+    def cluster_aggregated(self, n_clusters, first_cluster_iter=None,
+                           iters_to_use=None, **_cluster_args):
+        """Whole-dataset weighted k-means (reference ``cluster_aggregated``,
+        ``_clustering.py:197-523``) on the model's device: rows with zero
+        weight (bad coordinates) are excluded from training, weights are
+        used with ``use_weights_in_clustering``. Drops any stratified bank
+        and bin mapper, then discretizes every row."""
+        iters_to_use = self._resolve_iters(iters_to_use, first_cluster_iter)
+        self.n_clusters = n_clusters
+        self.first_cluster_iter = iters_to_use[0]
+        feats = self._featurize_all()
+        sel = np.isin(feats["iteration"], iters_to_use) & (feats["weights"] > 0)
+        w = (feats["weights"][sel] if self.use_weights_in_clustering
+             else np.ones(int(sel.sum())))
+        centers, _ids, init = kmeans_fit(
+            feats["child"][sel], w, n_clusters, seed=self._cluster_seed,
+            device=self.device, return_init=True,
+        )
+        self.clusters = _AggregateClustersShim(centers, device=self.device)
+        # The k-means++ rows of the training set: equal on every device
+        self.kmeans_init_index = init
+        self._strat = None
+        self._bin_mapper = None
+        self._discretize_all_aggregated()
+
+    def _discretize_all_aggregated(self):
+        """Ids of every parent and child row against the aggregate bank
+        (one assignment per row set on the model's device)."""
+        feats = self._featurize_all()
+        child_idx = self.clusters.predict(feats["child"])
+        parent_idx = self.clusters.predict(feats["parent"])
+        self._store_dtrajs(parent_idx, child_idx)
 
     def cluster_stratified(self, n_clusters, streaming=True,
                            first_cluster_iter=None, use_ray=True,
@@ -587,7 +679,10 @@ class modelWE:
     # --------------------------------------------------------- discretization
     def launch_discretization(self, progress_bar=None):
         """Discretize every parent and child row on the model's device,
-        by the route ``device_pipeline`` picks."""
+        by the route ``device_pipeline`` picks (aggregated clustering has
+        one route)."""
+        if self.clustering_method == "aggregated":
+            return self._discretize_all_aggregated()
         return _discretization.launch_discretization(self)
 
     def _ensure_discretized(self):
@@ -642,6 +737,10 @@ class modelWE:
         """Clean the flux matrix (reference ``_fluxmatrix.py:347-415``)."""
         if args:
             log.warning(f"organize_fluxMatrix ignoring unknown options {sorted(args)}")
+        if self.clustering_method == "aggregated":
+            return _cleaning.organize_aggregated_simple(
+                self, max_passes=max_passes, incremental=incremental
+            )
         return _cleaning.organize_stratified(
             self, max_passes=max_passes, incremental=incremental
         )
@@ -963,16 +1062,15 @@ class modelWE:
         ``file_paths`` is an :class:`ArrayWEDataset`. ``device_pipeline``
         picks the discretization route (pair launches, or the predict route
         over the 2N concatenated rows); both give the same dtrajs.
+        ``stratified=False`` clusters with aggregated k-means.
         ``cross_validation_groups > 0`` ends the build with block
         cross-validation over ``cross_validation_blocks`` blocks; a failure
-        there raises unless ``allow_validation_failure``. Aggregated
-        clustering and profiler traces raise ``NotImplementedError``. Stage
-        wall-clocks land in ``self.stage_timings``.
+        there raises unless ``allow_validation_failure``. Profiler traces
+        raise ``NotImplementedError``. Stage wall-clocks land in
+        ``self.stage_timings``.
         """
         from .tracing import StageTimer, live_stage_display
 
-        if not stratified:
-            raise _not_ported("aggregated clustering", "aggregated clustering")
         if profile_dir is not None:
             raise _not_ported("profiler traces (profile_dir)", "tracing")
         timer = StageTimer()
@@ -985,7 +1083,7 @@ class modelWE:
                 target_pcoord_bounds=target_pcoord_bounds,
                 dimreduce_method=dimreduce_method, tau=tau,
                 n_clusters=n_clusters, streaming=streaming,
-                fluxmatrix_iters=fluxmatrix_iters,
+                stratified=stratified, fluxmatrix_iters=fluxmatrix_iters,
                 fluxmatrix_iters_to_use=fluxmatrix_iters_to_use,
                 step_kwargs=step_kwargs, max_coord_iter=max_coord_iter,
                 dedup_coordinates=dedup_coordinates,
@@ -999,7 +1097,7 @@ class modelWE:
     def _run_build_pipeline(self, timer, *, file_paths, ref_struct, modelName,
                             basis_pcoord_bounds, target_pcoord_bounds,
                             dimreduce_method, tau, n_clusters, streaming,
-                            fluxmatrix_iters, fluxmatrix_iters_to_use,
+                            stratified, fluxmatrix_iters, fluxmatrix_iters_to_use,
                             step_kwargs, max_coord_iter, dedup_coordinates,
                             cross_validation_groups, cross_validation_blocks,
                             allow_validation_failure):
@@ -1022,7 +1120,7 @@ class modelWE:
             timer.set_note(f"method={self.dimReduceMethod}, ndim={self.ndim}")
         with timer.stage("Clustering"):
             self.cluster_coordinates(
-                n_clusters=n_clusters, streaming=streaming, stratified=True,
+                n_clusters=n_clusters, streaming=streaming, stratified=stratified,
                 store_validation_model=cross_validation_groups > 0,
                 **step_kwargs.get("clustering", {}),
             )
@@ -1078,10 +1176,11 @@ class modelWE:
         machine without a GPU (``load`` moves it to a device)."""
         state = self._state()
         state["device"] = torch.device("cpu")
-        if hasattr(self.coordinates, "device"):
-            coords = copy.copy(self.coordinates)
-            coords.device = torch.device("cpu")
-            state["coordinates"] = coords
+        for key in ("coordinates", "clusters"):
+            if hasattr(state[key], "device"):
+                obj = copy.copy(state[key])
+                obj.device = torch.device("cpu")
+                state[key] = obj
         return state
 
     def __deepcopy__(self, memo):
@@ -1100,8 +1199,9 @@ class modelWE:
         self.device = device
         for key in self._DEVICE_CACHES:
             setattr(self, key, None)
-        if hasattr(self.coordinates, "device"):
-            self.coordinates.device = device
+        for obj in (self.coordinates, self.clusters):
+            if hasattr(obj, "device"):
+                obj.device = device
         if self._strat is not None:
             self._strat.to(device)
         for m in [self.post_cluster_model, *getattr(self, "validation_models", [])]:

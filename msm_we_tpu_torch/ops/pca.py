@@ -1,14 +1,16 @@
-"""Streaming PCA (counterpart of ``MomentAccumulator``, ``PCAModel`` and
-``IdentityCoordinates`` in ``msm_we_tpu/ops/pca.py``).
+"""Streaming dimensionality reduction: PCA, weighted TICA, VAMP.
 
-Moments are accumulated per batch and combined across batches with Chan's
-pairwise update in float64. The default per-batch path is float64 numpy
-(exact covariance parity with the JAX package); ``dtype=np.float32`` runs
-the d x d second-moment product in f32 on a torch device. The fitted
-transform projects in host numpy below ``_DEVICE_TRANSFORM_MIN_FLOPS`` and
-with an f32 ``torch.matmul`` on the model's device above it. TICA/VAMP
-(``PairMomentAccumulator``, ``TICAModel``) are not ported yet (ROADMAP,
-queue 1).
+Counterpart of ``MomentAccumulator``, ``PCAModel``,
+``PairMomentAccumulator``, ``TICAModel`` and ``IdentityCoordinates`` in
+``msm_we_tpu/ops/pca.py``. Moments are accumulated per batch and combined
+across batches with Chan's pairwise update (and its lagged-pair form) in
+float64. The default per-batch path is float64 numpy, a copy of the JAX
+package's (bitwise parity); ``dtype=np.float32`` centers each batch in
+f64 on the host, then runs the d x d products as IEEE f32 products on a
+torch device (``_device.py`` pins out TF32). The eigenproblems are host
+f64. A fitted transform projects in host numpy below
+``_DEVICE_TRANSFORM_MIN_FLOPS`` and with an f32 ``torch.matmul`` on its
+device above it.
 """
 from __future__ import annotations
 
@@ -18,11 +20,35 @@ import torch
 from .._device import as_device
 from .._logging import log
 
-__all__ = ["IdentityCoordinates", "PCAModel", "MomentAccumulator"]
+__all__ = [
+    "IdentityCoordinates",
+    "PCAModel",
+    "TICAModel",
+    "MomentAccumulator",
+    "PairMomentAccumulator",
+]
 
 # Below this many flops a projection runs in host numpy: a device round
 # trip dwarfs the product for small chunks
 _DEVICE_TRANSFORM_MIN_FLOPS = 5e7
+
+
+def _center_f64(X, w, ws):
+    """(weighted batch mean, centered-then-f32 data), computed in f64: the
+    subtraction happens before the f32 cast, so the precision left tracks
+    the data's spread, not its offset from the origin."""
+    X = np.asarray(X, np.float64)
+    mean = (X * w[:, None]).sum(axis=0) / ws
+    return mean, (X - mean[None, :]).astype(np.float32)
+
+
+def _weighted_gram_f32(A, B, w, device):
+    """``(A * w)^T B`` of pre-centered f32 blocks as an IEEE f32 product on
+    ``device``, returned as host f64."""
+    a = torch.as_tensor(A, device=device)
+    b = a if B is A else torch.as_tensor(B, device=device)
+    wt = torch.as_tensor(w.astype(np.float32), device=device)
+    return ((a * wt[:, None]).T @ b).double().cpu().numpy()
 
 
 class IdentityCoordinates:
@@ -55,14 +81,13 @@ class MomentAccumulator:
         ws = float(w.sum())
         if ws == 0.0:
             return
-        mean_b = (X * w[:, None]).sum(axis=0) / ws
-        Xc = X - mean_b[None, :]
         if self.dtype == np.float64:
+            mean_b = (X * w[:, None]).sum(axis=0) / ws
+            Xc = X - mean_b[None, :]
             M2_b = (Xc * w[:, None]).T @ Xc
         else:
-            Xt = torch.as_tensor(Xc.astype(np.float32), device=self.device)
-            wt = torch.as_tensor(w.astype(np.float32), device=self.device)
-            M2_b = ((Xt * wt[:, None]).T @ Xt).double().cpu().numpy()
+            mean_b, Xc = _center_f64(X, w, ws)
+            M2_b = _weighted_gram_f32(Xc, Xc, w, self.device)
         n_new = self.n + ws
         delta = mean_b - self.mean
         self.M2 += M2_b + np.outer(delta, delta) * (self.n * ws / n_new)
@@ -139,3 +164,158 @@ class PCAModel:
             return self._project((flat - self.mean_).astype(np.float32))
         flat = np.asarray(coords, np.float32).reshape(len(coords), -1)
         return self._project(flat) - self._offset
+
+
+class PairMomentAccumulator:
+    """Streaming lagged moments for TICA/VAMP from (start, end) pairs.
+
+    Both dtype paths store moment sums centered at the running means and
+    combine batches with the lagged-pair form of Chan's update in float64.
+    ``dtype=np.float32`` centers each batch in f64 on the host and runs the
+    three d x d products in f32 on ``device``; the values entering them are
+    centered and small, so the path is safe far from the origin."""
+
+    def __init__(self, n_features, dtype=np.float64, device="cpu"):
+        self.n = 0.0
+        self.dtype = np.dtype(dtype)
+        self.device = as_device(device)
+        self.mu0 = np.zeros(n_features, dtype=np.float64)
+        self.mut = np.zeros(n_features, dtype=np.float64)
+        self.C00 = np.zeros((n_features, n_features), dtype=np.float64)
+        self.C0t = np.zeros((n_features, n_features), dtype=np.float64)
+        self.Ctt = np.zeros((n_features, n_features), dtype=np.float64)
+
+    def add(self, X0, Xt, weights=None):
+        if self.dtype == np.float64:
+            X0 = np.asarray(X0, np.float64)
+            Xt = np.asarray(Xt, np.float64)
+            w = (
+                np.asarray(weights, np.float64)
+                if weights is not None
+                else np.ones(X0.shape[0])
+            )
+            ws = w.sum()
+            if ws == 0.0:
+                return
+            mu0b = (X0 * w[:, None]).sum(axis=0) / ws
+            mutb = (Xt * w[:, None]).sum(axis=0) / ws
+            X0c = X0 - mu0b[None, :]
+            Xtc = Xt - mutb[None, :]
+            m00 = (X0c * w[:, None]).T @ X0c
+            m0t = (X0c * w[:, None]).T @ Xtc
+            mtt = (Xtc * w[:, None]).T @ Xtc
+        else:
+            w = (
+                np.asarray(weights, np.float64)
+                if weights is not None
+                else np.ones(len(X0), np.float64)
+            )
+            ws = float(w.sum())
+            if ws == 0.0:
+                return
+            mu0b, X0c = _center_f64(X0, w, ws)
+            mutb, Xtc = _center_f64(Xt, w, ws)
+            m00 = _weighted_gram_f32(X0c, X0c, w, self.device)
+            m0t = _weighted_gram_f32(X0c, Xtc, w, self.device)
+            mtt = _weighted_gram_f32(Xtc, Xtc, w, self.device)
+
+        n_new = self.n + ws
+        d0 = mu0b - self.mu0
+        dt = mutb - self.mut
+        f = self.n * ws / n_new
+        self.C00 += m00 + f * np.outer(d0, d0)
+        self.C0t += m0t + f * np.outer(d0, dt)
+        self.Ctt += mtt + f * np.outer(dt, dt)
+        self.mu0 += d0 * (ws / n_new)
+        self.mut += dt * (ws / n_new)
+        self.n = n_new
+
+    def finalize(self, method="tica", var_cutoff=0.95, epsilon=1e-10):
+        """Solve the (generalized) eigenproblem in host f64 and return a
+        :class:`TICAModel` projecting on the accumulator's device.
+
+        ``tica``: reversible (symmetrized) estimation, kinetic-map scaling.
+        ``vamp``: non-reversible singular-value problem, kinetic-map
+        scaling."""
+        n = self.n
+        mu0 = self.mu0
+        mut = self.mut
+        C00 = self.C00 / n
+        C0t = self.C0t / n
+        Ctt = self.Ctt / n
+
+        def inv_sqrt(C):
+            evals, evecs = np.linalg.eigh(C)
+            emax = float(evals.max()) if len(evals) else 0.0
+            if emax <= 0.0:
+                raise ValueError(
+                    "Covariance has no positive eigenvalues (constant "
+                    "features?); cannot whiten for TICA/VAMP."
+                )
+            # Relative rank threshold only (the deeptime convention)
+            keep = evals > epsilon * emax
+            return evecs[:, keep] @ np.diag(evals[keep] ** -0.5) @ evecs[:, keep].T
+
+        if method == "tica":
+            # Symmetrized estimator centered at mu = (mu0 + mut) / 2; the
+            # own-mean covariances re-centered there add +-delta delta^T / 4
+            mu = 0.5 * (mu0 + mut)
+            delta = mu0 - mut
+            dd4 = 0.25 * np.outer(delta, delta)
+            C00s = 0.5 * (C00 + Ctt) + dd4
+            C0ts = 0.5 * (C0t + C0t.T) - dd4
+            W = inv_sqrt(C00s)
+            K = W @ C0ts @ W
+            evals, evecs = np.linalg.eigh(0.5 * (K + K.T))
+            order = np.argsort(np.abs(evals))[::-1]
+            evals, evecs = evals[order], evecs[:, order]
+            components = W @ evecs
+            scales = evals  # kinetic map
+            mean = mu
+            kinetic_var = evals**2
+        elif method == "vamp":
+            W0 = inv_sqrt(C00)
+            Wt = inv_sqrt(Ctt)
+            K = W0 @ C0t @ Wt
+            U, S, _Vt = np.linalg.svd(K)
+            components = W0 @ U
+            scales = S
+            mean = mu0
+            kinetic_var = S**2
+        else:
+            raise ValueError(f"Unknown method {method}")
+
+        if var_cutoff >= 1.0:
+            n_comp = len(kinetic_var)
+        else:
+            ratio = np.cumsum(kinetic_var) / np.maximum(kinetic_var.sum(), 1e-300)
+            crossed = ratio >= var_cutoff
+            n_comp = int(np.argmax(crossed) + 1) if crossed.any() else len(ratio)
+        n_comp = max(n_comp, 1)
+        log.debug(f"{method} keeping {n_comp} components")
+        return TICAModel(mean, components[:, :n_comp], scales[:n_comp],
+                         device=self.device)
+
+
+class TICAModel:
+    """Fitted TICA/VAMP transform with kinetic-map scaling:
+    ``(x - mean) @ (components * scales)``."""
+
+    def __init__(self, mean, components, scales, device="cpu"):
+        self.mean_ = np.asarray(mean)
+        self.components_ = np.asarray(components)  # (d, n_components)
+        self.scales_ = np.asarray(scales)
+        self.output_dimension = self.components_.shape[1]
+        self.device = as_device(device)
+        self._f32comp = (self.components_ * self.scales_[None, :]).astype(np.float32)
+
+    def transform(self, coords):
+        # Center in f64 before the f32 cast: casting far-from-origin raw
+        # coordinates first would quantize away their spread
+        flat = np.asarray(coords, np.float64).reshape(len(coords), -1)
+        flat = (flat - self.mean_).astype(np.float32)
+        if 2.0 * flat.size * self.output_dimension < _DEVICE_TRANSFORM_MIN_FLOPS:
+            return flat @ self._f32comp
+        x = torch.as_tensor(flat, device=self.device)
+        c = torch.as_tensor(self._f32comp, device=self.device)
+        return (x @ c).cpu().numpy()

@@ -12,13 +12,13 @@ Numerics families, as in the JAX package:
   and updates batches under ``HOST_BATCH_THRESHOLD`` rows. Bin ``b`` seeds
   from ``np.random.default_rng(seed + b)``, so seeds equal the JAX
   package's;
-* the device family keeps ``(centers, counts)`` as torch tensors on the
-  model's device between batches (``_dev_state``) and assigns through
-  ``ops.kmeans.masked_assign`` (the H4-family kernel on CUDA).
-
-Device-family seeding (bins with ``HOST_BATCH_THRESHOLD`` or more members
-at seeding time; ``seed_bins_batched`` in JAX) is not ported yet and
-raises ``NotImplementedError`` (ROADMAP, queue 1).
+* the device family seeds bins with ``HOST_BATCH_THRESHOLD`` or more
+  members at seeding time, all of one batch's in one
+  ``ops.kmeans.seed_bins_batched`` call (its k-means++ draws are the
+  port's own: JAX's PRNG cannot be reproduced), keeps ``(centers,
+  counts)`` as torch tensors on the model's device between batches
+  (``_dev_state``) and assigns through ``ops.kmeans.masked_assign`` (the
+  H4-family kernel on CUDA).
 """
 from __future__ import annotations
 
@@ -29,7 +29,12 @@ import torch
 
 from .._device import as_device
 from .._logging import log
-from .kmeans import masked_assign, masked_minibatch_scan, masked_minibatch_step
+from .kmeans import (
+    masked_assign,
+    masked_minibatch_scan,
+    masked_minibatch_step,
+    seed_bins_batched,
+)
 
 __all__ = ["StratifiedKmeans", "HOST_BATCH_THRESHOLD"]
 
@@ -128,6 +133,8 @@ class StratifiedKmeans:
         self.center_bin = np.repeat(np.arange(self.n_bins, dtype=np.int32), self.k)
         self.initialized = np.zeros(self.n_bins, bool)
         self.we_remap = np.arange(self.n_bins, dtype=np.int32)
+        # Bins seeded by each numerics family (host numpy, device batch)
+        self.seeded_by_family = {"host": 0, "device": 0}
         self._refresh_ids()
 
     # ------------------------------------------------------------ bookkeeping
@@ -216,10 +223,13 @@ class StratifiedKmeans:
         """One streaming update with a batch of features and their WE bins.
 
         Uninitialized bins that receive >= k members are seeded (weighted
-        k-means++ plus 5 Lloyd sweeps, host family); bins initialized
-        before this call get the running-weighted-mean update (host family
-        under ``HOST_BATCH_THRESHOLD`` live rows, device family above).
-        Returns the set of bins updated.
+        k-means++ plus 5 Lloyd sweeps): in the host family under
+        ``HOST_BATCH_THRESHOLD`` members, else collected and seeded together
+        on the device. Bins initialized before this call get the
+        running-weighted-mean update (host family under
+        ``HOST_BATCH_THRESHOLD`` live rows, device family above); a bin
+        seeded in this call is not updated again. Returns the set of bins
+        updated.
         """
         X = np.asarray(X, np.float32)
         seg_bins = np.asarray(seg_bins)
@@ -234,30 +244,30 @@ class StratifiedKmeans:
         # members once; the minibatch update must not count them again
         initialized_before = self.initialized.copy()
         seeded = False
+        device_seeds = []
         for b in unique_bins:
             if self.initialized[b]:
                 continue
             members = np.flatnonzero(seg_bins == b)
             if len(members) < self.k:
                 continue
-            if len(members) >= HOST_BATCH_THRESHOLD:
-                raise NotImplementedError(
-                    f"bin {b} seeds from {len(members)} members: device-family "
-                    f"seeding (>= {HOST_BATCH_THRESHOLD} members; "
-                    "ops/kmeans.py::seed_bins_batched) is not ported yet "
-                    "(ROADMAP, queue 1: device-family seeding)"
-                )
             self._sync_host()
             rows = slice(b * self.k, (b + 1) * self.k)
-            rng = np.random.default_rng(self.seed + int(b))
-            init = _np_kmeans_pp(rng, X[members], w[members], self.k)
-            cb, idx = _np_lloyd(X[members], w[members], init, n_iter=5)
-            wsum = np.bincount(idx, weights=w[members], minlength=self.k)
-            self.centers[rows] = cb
-            self.counts[rows] = wsum
+            if len(members) < HOST_BATCH_THRESHOLD:
+                rng = np.random.default_rng(self.seed + int(b))
+                init = _np_kmeans_pp(rng, X[members], w[members], self.k)
+                cb, idx = _np_lloyd(X[members], w[members], init, n_iter=5)
+                wsum = np.bincount(idx, weights=w[members], minlength=self.k)
+                self.centers[rows] = cb
+                self.counts[rows] = wsum
+                self.seeded_by_family["host"] += 1
+            else:
+                device_seeds.append((int(b), members))
             self.valid[rows] = True
             self.initialized[b] = True
             seeded = True
+        if device_seeds:
+            self._seed_on_device(X, w, device_seeds)
 
         # Bins emptied by cleaning (initialized, no valid centers) are not
         # trainable: their members would fall through onto an invalid row
@@ -300,6 +310,28 @@ class StratifiedKmeans:
         if seeded:
             self._refresh_ids()
         return set(int(b) for b in unique_bins if self.initialized[b])
+
+    def _seed_on_device(self, X, w, device_seeds):
+        """Seed the ``(bin, member rows)`` of ``device_seeds`` in one
+        ``seed_bins_batched`` call on the bank's device, the members
+        zero-weight padded to the largest count; bin ``b`` seeds with
+        ``seed + b``."""
+        P = max(len(m) for _b, m in device_seeds)
+        Xs = np.zeros((len(device_seeds), P, X.shape[1]), np.float32)
+        ws = np.zeros((len(device_seeds), P), np.float32)
+        for i, (_b, m) in enumerate(device_seeds):
+            Xs[i, : len(m)] = X[m]
+            ws[i, : len(m)] = w[m]
+        packed = seed_bins_batched(
+            [self.seed + b for b, _m in device_seeds],
+            torch.as_tensor(Xs, device=self.device),
+            torch.as_tensor(ws, device=self.device), self.k,
+        ).cpu().numpy()
+        for i, (b, _m) in enumerate(device_seeds):
+            rows = slice(b * self.k, (b + 1) * self.k)
+            self.centers[rows] = packed[i, :, :-1]
+            self.counts[rows] = packed[i, :, -1]
+        self.seeded_by_family["device"] += len(device_seeds)
 
     def minibatch_scan_run(self, X_dev, eff_bin_dev, w_dev, starts, lengths):
         """A run of no-seeding streaming batches over row windows of the

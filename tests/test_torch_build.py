@@ -73,12 +73,11 @@ def _jax_build(path, scan, **kw):
 
 def _port_build(data, scan, **kw):
     m = modelWE(device="cpu")
-    m.build_analyze_model(
-        file_paths=ArrayWEDataset(data),
-        step_kwargs={"clustering": {"user_bin_mapper": RectilinearBinMapper([EDGES]),
-                                    "scan_small_batches": scan}},
-        **{**COMMON, **kw},
-    )
+    step_kwargs = kw.pop("step_kwargs", {
+        "clustering": {"user_bin_mapper": RectilinearBinMapper([EDGES]),
+                       "scan_small_batches": scan}})
+    m.build_analyze_model(file_paths=ArrayWEDataset(data), step_kwargs=step_kwargs,
+                          **{**COMMON, **kw})
     return m
 
 
@@ -239,18 +238,29 @@ def test_stratified_predict_matches_jax(arrays):
 
 
 def test_device_family_seeding_is_not_ported():
-    s = StratifiedKmeans(1, 2, 3)
-    X = np.zeros((HOST_BATCH_THRESHOLD, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="device-family seeding"):
-        s.partial_fit(X, np.zeros(len(X), int))
+    """Device-family seeding is ported now: a bin seeding from
+    ``HOST_BATCH_THRESHOLD`` members seeds through ``seed_bins_batched``
+    (tests/test_torch_seeding.py holds it to the JAX package)."""
+    from msm_we_tpu_torch.ops.kmeans import seed_bin
+
+    s = StratifiedKmeans(1, 2, 3, seed=5)
+    X = np.random.default_rng(0).normal(size=(HOST_BATCH_THRESHOLD, 3)).astype(np.float32)
+    assert s.partial_fit(X, np.zeros(len(X), int)) == {0}
+    assert s.seeded_by_family == {"host": 0, "device": 1}
+    packed = seed_bin(5, torch.as_tensor(X), torch.ones(len(X)), 2).numpy()
+    np.testing.assert_array_equal(s.centers, packed[:, :-1])
+    np.testing.assert_array_equal(s.counts, packed[:, -1])
 
 
 @pytest.mark.parametrize("change", [
-    dict(dimreduce_method="tica"),
-    dict(stratified=False),
+    dict(ref_struct="topology.pdb"),
+    dict(step_kwargs={"clustering": {}}),
     dict(profile_dir="trace"),
 ])
 def test_unported_configurations_raise(arrays, change):
+    """What the port does not cover yet raises, naming its ROADMAP entry
+    (mdtraj topologies, bin mappers read from a west.h5, profiler
+    traces)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port_build(arrays, True, **change)
 
