@@ -9,13 +9,20 @@ Phases, each printing one JSON line:
 2. ``build``: compile the kernel library from ``msm_we_tpu_torch/csrc``.
 3. ``kernels``: every kernel against its plain PyTorch version on the same
    device tensors at the main path's shapes (``make_problem()``: 102,400
-   segments, raw 900 -> 30 features, 250 centers; plus 3,200 centers over
-   128 bins). Ids must agree except at near-ties, dyadic f64 flux bitwise.
-   Median times of kernel and plain version from CUDA events.
+   segments, raw 900 -> 30 features, 250 centers). H3 and H4 also at 3,200
+   centers over 128 bins, H4 also on one bin of 300 centers (aggregated
+   clustering) and at 300 features (12 bins x 25). Ids must agree except
+   at near-ties, dyadic f64 flux bitwise, and H4's ids must equal H3's raw
+   ids bitwise. Median times of kernel, plain version and the dense
+   ``torch.mm`` each kernel cannot avoid (``mm_ms``) from CUDA events;
+   ``bound_ms`` is the least time the card could take (bytes over 3.35
+   TB/s or FLOPs over 67 TFLOP/s f32, whichever is larger).
 4. ``main``: the main path with every launch count reset first --
    ``hot_step`` in both tiers and ``entry()`` at full size, then the haMSM
    build (``modelWE.build_analyze_model``) on a 101 x 1,000 synthetic WE
-   run generated in memory. Every kernel must have launched. Then the
+   run generated in memory, cold with ``device="cuda"``, then warm with
+   ``modelWE()`` (the default device must be the card). Every kernel must
+   have launched. Then the
    results are checked against references: the hot step on a reduced
    problem against its CPU run, and a reduced build on the GPU against the
    same build on the CPU.
@@ -34,11 +41,12 @@ Phases, each printing one JSON line:
    then warm: bins seed through the device family, the two builds are
    bitwise equal. (c) The default build with aggregated k-means (300
    clusters) on the ``analysis`` data, then against the CPU at 30 x 200.
-   (d) TICA and VAMP fits at 100 atoms (300 raw features, device f32
-   pair moments) against the CPU f64 fits (their outputs exceed the
-   kernel's 128 features, so those builds must raise), then TICA, VAMP
-   and batch-PCA builds at 40 atoms (120 features). Launch counts are
-   reset before each build of (b)-(d); H4 must launch in each.
+   (d) TICA, VAMP and batch-PCA fits and builds at 100 atoms (300 raw
+   features, device f32 pair moments) against the CPU f64 fits; their
+   features are wider than 128 (139 to 300), so H4 runs its any-width
+   path, and each build's ids must equal the plain version's on its own
+   features and bank except at near-ties. Launch counts are reset before
+   each build of (b)-(d); H4 must launch in each.
 
 The line before the last is the ``{"kernels": [...]}`` summary and the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -59,15 +67,22 @@ PHASES = ("device", "build", "kernels", "main", "analysis", "configs")
 
 KERNEL_INFO = {
     "transform_assign_child": dict(
-        pallas="H1", replaces="msm_we_tpu/ops/pallas_kernels.py:546"),
+        pallas="H1", replaces="msm_we_tpu/ops/pallas_kernels.py:546",
+        source="msm_we_tpu_torch/csrc/stratified_assign.cu"),
     "transform_assign": dict(
-        pallas="H2", replaces="msm_we_tpu/ops/pallas_kernels.py:377"),
+        pallas="H2", replaces="msm_we_tpu/ops/pallas_kernels.py:377",
+        source="msm_we_tpu_torch/csrc/stratified_assign.cu"),
     "assign_flux": dict(
-        pallas="H3", replaces="msm_we_tpu/ops/pallas_kernels.py:248"),
+        pallas="H3", replaces="msm_we_tpu/ops/pallas_kernels.py:248",
+        source="msm_we_tpu_torch/csrc/stratified_assign.cu"),
     "pair_assign": dict(
-        pallas="H4", replaces="msm_we_tpu/ops/pallas_kernels.py:203"),
+        pallas="H4", replaces="msm_we_tpu/ops/pallas_kernels.py:203",
+        source="msm_we_tpu_torch/csrc/pair_assign.cu"),
 }
-SOURCE = "msm_we_tpu_torch/csrc/stratified_assign.cu"
+# Published H100 SXM peaks (NVIDIA H100 datasheet): HBM bytes/s and
+# f32 FLOP/s outside the tensor cores (every assignment stays exact f32)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 
 
 def emit(obj):
@@ -121,6 +136,25 @@ def cuda_ms(fn, reps, warmup=3):
 # --------------------------------------------------------------- kernels
 
 
+def device_ms(fn, name, reps):
+    """Mean device milliseconds per run of ``fn`` spent in the kernels
+    whose name contains ``name`` (``torch.profiler`` over ``reps`` runs
+    after one untimed run), or None when the trace shows no device time
+    for them. Unlike ``cuda_ms``, host launch overhead is not counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "self_device_time_total", 0) or 0
+             for ev in prof.key_averages() if name in ev.key)
+    return us / 1e3 / reps if us > 0 else None
+
+
 def _compare_ids(name, regime, ids_k, ids_p, n_states, X, bins, bank,
                  c2=None, raw=None, proj=None):
     """Mismatching ids must be near-ties between two regular centers."""
@@ -159,6 +193,47 @@ def _compare_ids(name, regime, ids_k, ids_p, n_states, X, bins, bank,
     return len(bad), n_ties
 
 
+def _bound(tensors, flops):
+    """(bound_ms, bound_by): the larger of the bytes of ``tensors`` (each
+    input read once, each output written once) over the HBM rate and
+    ``flops`` over the f32 peak."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors if t is not None)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _same_bin_pairs(bins, bank):
+    """Number of (row, valid same-bin center) pairs: the products this
+    run's data needs."""
+    import torch
+
+    cb = bank[1][bank[2]].long()
+    b = bins.long()
+    n_bins = int(max(int(cb.max()), int(b.max()))) + 1
+    per_bin = torch.bincount(cb, minlength=n_bins)
+    return int(torch.where(b >= 0, per_bin[b.clamp(min=0)], 0).sum())
+
+
+def _wide_bank(fc, bins_c, n_bins, k, seed, rng):
+    """k centers per bin: rows of ``fc`` in that bin plus small noise."""
+    import numpy as np
+    import torch
+
+    dev = fc.device
+    bc = bins_c.cpu().numpy()
+    pick = np.concatenate([
+        rng.choice(np.flatnonzero(bc == b), k, replace=False) for b in range(n_bins)
+    ])
+    centers = (fc[torch.as_tensor(pick, device=dev)]
+               + 0.01 * torch.randn(len(pick), fc.shape[1], device=dev,
+                                    generator=torch.Generator(dev).manual_seed(seed))
+               ).contiguous()
+    return (centers,
+            torch.as_tensor(np.repeat(np.arange(n_bins, dtype=np.int32), k), device=dev),
+            torch.ones(len(pick), dtype=torch.bool, device=dev))
+
+
 def phase_kernels(args, summary):
     import numpy as np
     import torch
@@ -182,19 +257,24 @@ def phase_kernels(args, summary):
     w64 = torch.as_tensor(rng.integers(1, 17, N) / 16.0, device=dev)
     reps = args.reps
 
-    def record(name, regime, ms, plain_ms, err, mism, ties, flux_ok=None,
-               K=None):
+    def record(name, regime, ms, plain_ms, err, mism, ties, bound, mm_ms,
+               flux_ok=None, K=None, **extra):
         line = dict(phase="kernel", name=name, pallas=KERNEL_INFO[name]["pallas"],
                     regime=regime, n=int(N), K=int(K or bank[0].shape[0]),
-                    ms=ms, plain_ms=plain_ms, max_abs_err=err,
-                    id_mismatches=mism, near_ties=ties)
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                    bound_by=bound[1], mm_ms=mm_ms, library_ms=None,
+                    max_abs_err=err, id_mismatches=mism, near_ties=ties, **extra)
         if flux_ok is not None:
             line["flux_bitwise"] = flux_ok
         emit(line)
         if regime == "K=250":  # the main path's bank for the summary line
-            summary[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err)
+            summary[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                                 bound_ms=bound[0], bound_by=bound[1],
+                                 mm_ms=mm_ms, kernel_ms=extra.get("kernel_ms"))
 
     a2 = sa.c2adj(s["mean"], s["comp"], s["centers"])
+    pairs_p = _same_bin_pairs(s["pbins"], bank)
+    pairs_c = _same_bin_pairs(s["cbins"], bank)
 
     # H1: child rows, raw -> features -> ids (+ features)
     idx_k, g_k = sa.transform_assign_child(
@@ -216,7 +296,15 @@ def phase_kernels(args, summary):
     pms = cuda_ms(lambda: sa.transform_assign_child_plain(
         s["raw_child"], s["cbins"], s["basis_c"], s["target_c"], s["mean"],
         s["comp"], *bank, S, emit_features=True), reps)
-    record("transform_assign_child", "K=250", ms, pms, err, mism, ties)
+    dms = device_ms(lambda: sa.transform_assign_child(
+        s["raw_child"], s["cbins"], s["basis_c"], s["target_c"], s["mean"],
+        s["comp"], *bank, S, emit_features=True), "stratified_assign_kernel", reps)
+    mm = cuda_ms(lambda: torch.mm(s["raw_child"], s["comp"]), reps)
+    bound = _bound([s["raw_child"], s["cbins"], s["basis_c"], s["target_c"],
+                    s["mean"], s["comp"], *bank, idx_k, g_k],
+                   2 * N * D * F + 2 * pairs_c * F)
+    record("transform_assign_child", "K=250", ms, pms, err, mism, ties, bound, mm,
+           kernel_ms=dms)
 
     # H2: both raw sets, flux-order overrides, f64 dyadic flux
     args2 = (s["raw_parent"], s["raw_child"], s["pbins"], s["cbins"])
@@ -245,69 +333,119 @@ def phase_kernels(args, summary):
     err = float((fk - fpl).abs().max())
     ms = cuda_ms(lambda: sa.transform_assign(*args2, s["w"], *ovr2), reps)
     pms = cuda_ms(lambda: sa.transform_assign_plain(*args2, s["w"], *ovr2), reps)
-    record("transform_assign", "K=250", ms, pms, err, m1 + m2, t1 + t2, flux_ok)
+    dms = device_ms(lambda: sa.transform_assign(*args2, s["w"], *ovr2),
+                    "stratified_assign_kernel", reps)
+    mm = cuda_ms(lambda: (torch.mm(s["raw_parent"], s["comp"]),
+                          torch.mm(s["raw_child"], s["comp"])), reps)
+    fm32 = torch.empty((S, S), dtype=torch.float32, device=dev)
+    bound = _bound([*args2, s["w"], *ovr2[:5], *bank, pk, ck, fm32],
+                   4 * N * D * F + 2 * (pairs_p + pairs_c) * F)
+    record("transform_assign", "K=250", ms, pms, err, m1 + m2, t1 + t2, bound,
+           mm, flux_ok, kernel_ms=dms)
 
     # H3 / H4 on features: the main path's K=250 bank, and a wide bank
     # (128 bins x 25 = 3,200 centers: K tiling, > 64 bins)
     off = s["mean"] @ s["comp"]
     fp = (s["raw_parent"] @ s["comp"] - off).contiguous()
     fc = (s["raw_child"] @ s["comp"] - off).contiguous()
-    del s["raw_parent"]
+    del s["raw_parent"], args2
     n_wide = 128
     bins_p_w = torch.as_tensor(rng.integers(0, n_wide, N).astype(np.int32),
                                device=dev)
     bins_c_w = torch.as_tensor(rng.integers(0, n_wide, N).astype(np.int32),
                                device=dev)
-    pick = np.concatenate([
-        rng.choice(np.flatnonzero(bins_c_w.cpu().numpy() == b), 25,
-                   replace=False)
-        for b in range(n_wide)
-    ])
-    centers_w = (fc[torch.as_tensor(pick, device=dev)]
-                 + 0.01 * torch.randn(len(pick), F, device=dev,
-                                      generator=torch.Generator(dev).manual_seed(7))
-                 ).contiguous()
-    bank_w = (centers_w,
-              torch.as_tensor(np.repeat(np.arange(n_wide, dtype=np.int32), 25),
-                              device=dev),
-              torch.ones(len(pick), dtype=torch.bool, device=dev))
-    S_w = len(pick) + 2
-    regimes = [("K=250", s["pbins"], s["cbins"], bank, S),
-               ("K=3200,bins=128", bins_p_w, bins_c_w, bank_w, S_w)]
+    bank_w = _wide_bank(fc, bins_c_w, n_wide, 25, 7, rng)
     ovr = (s["basis_p"], s["basis_c"], s["target_c"])
-    for regime, pb, cb, bk, SS in regimes:
-        pk, ck, fk = sa.assign_flux(fp, fc, pb, cb, w64, *ovr, *bk, SS)
-        _pp, _cp, fpl = sa.assign_flux_plain(fp, fc, pb, cb, w64, *ovr, *bk, SS)
-        rk = sa.pair_assign(fp, fc, pb, cb, *bk)
-        rp = sa.pair_assign_plain(fp, fc, pb, cb, *bk)
-        torch.cuda.synchronize()
-        m1, t1 = _compare_ids("pair_assign", regime, rk[0], rp[0], SS, fp, pb, bk)
-        m2, t2 = _compare_ids("pair_assign", regime, rk[1], rp[1], SS, fc, cb, bk)
-        own = _scatter_flux(pk, ck, w64, SS)
-        flux_ok = bool(torch.equal(fk, own)) and (
-            (m1 + m2) > 0 or bool(torch.equal(fk, fpl)))
-        require(flux_ok, f"H3 [{regime}] dyadic f64 flux is not bitwise equal")
-        # Raw ids from the flux kernel must be the H4 ids (same scoring)
-        err = float((fk - fpl).abs().max())
-        ms = cuda_ms(lambda: sa.assign_flux(fp, fc, pb, cb, s["w"], *ovr, *bk,
-                                            SS), reps)
-        pms = cuda_ms(lambda: sa.assign_flux_plain(fp, fc, pb, cb, s["w"], *ovr,
-                                                   *bk, SS), reps)
-        record("assign_flux", regime, ms, pms, err, m1 + m2, t1 + t2, flux_ok,
-               K=bk[0].shape[0])
+    h4_kw = dict(basis_p=s["basis_p"], basis_c=s["basis_c"],
+                 target_c=s["target_c"], order="predict")
 
-        # H4 with the predict-order epilogue, as the build discretizes
-        kw = dict(n_states=SS, basis_p=s["basis_p"], basis_c=s["basis_c"],
-                  target_c=s["target_c"], order="predict")
-        ms = cuda_ms(lambda: sa.pair_assign(fp, fc, pb, cb, *bk, **kw), reps)
-        pms = cuda_ms(lambda: sa.pair_assign_plain(fp, fc, pb, cb, *bk, **kw),
+    def h4(regime, X_p, X_c, pb, cb, bk, flux_regime):
+        """H4 against its plain version (and, with ``flux_regime``, H3
+        and H3's raw ids bitwise); wrapper, kernel-alone and plain times."""
+        SS = bk[0].shape[0] + 2
+        rk = sa.pair_assign(X_p, X_c, pb, cb, *bk)
+        rp = sa.pair_assign_plain(X_p, X_c, pb, cb, *bk)
+        torch.cuda.synchronize()
+        m1, t1 = _compare_ids("pair_assign", regime, rk[0], rp[0], SS, X_p, pb, bk)
+        m2, t2 = _compare_ids("pair_assign", regime, rk[1], rp[1], SS, X_c, cb, bk)
+        pairs = _same_bin_pairs(pb, bk) + _same_bin_pairs(cb, bk)
+        Fx = X_c.shape[1]
+        mm = cuda_ms(lambda: (torch.mm(X_p, bk[0].T), torch.mm(X_c, bk[0].T)), reps)
+        extra = {}
+        if flux_regime:
+            pk, ck, fk = sa.assign_flux(X_p, X_c, pb, cb, w64, *ovr, *bk, SS)
+            _pp, _cp, fpl = sa.assign_flux_plain(X_p, X_c, pb, cb, w64, *ovr, *bk, SS)
+            none = torch.zeros(N, dtype=torch.bool, device=dev)
+            hp, hc, _fm = sa.assign_flux(X_p, X_c, pb, cb, w64, none, none, none,
+                                         *bk, SS)
+            require(torch.equal(hp, rk[0]) and torch.equal(hc, rk[1]),
+                    f"H4 [{regime}] ids are not bitwise H3's raw ids")
+            own = _scatter_flux(pk, ck, w64, SS)
+            flux_ok = bool(torch.equal(fk, own)) and (
+                (m1 + m2) > 0 or bool(torch.equal(fk, fpl)))
+            require(flux_ok, f"H3 [{regime}] dyadic f64 flux is not bitwise equal")
+            err = float((fk - fpl).abs().max())
+            ms = cuda_ms(lambda: sa.assign_flux(X_p, X_c, pb, cb, s["w"], *ovr,
+                                                *bk, SS), reps)
+            pms = cuda_ms(lambda: sa.assign_flux_plain(X_p, X_c, pb, cb, s["w"],
+                                                       *ovr, *bk, SS), reps)
+            dms = device_ms(lambda: sa.assign_flux(X_p, X_c, pb, cb, s["w"], *ovr,
+                                                   *bk, SS), "stratified_assign_kernel", reps)
+            fm32 = torch.empty((SS, SS), dtype=torch.float32, device=dev)
+            bound = _bound([X_p, X_c, pb, cb, s["w"], *ovr, *bk, pk, ck, fm32],
+                           2 * pairs * Fx)
+            record("assign_flux", regime, ms, pms, err, m1 + m2, t1 + t2, bound,
+                   mm, flux_ok, K=bk[0].shape[0], kernel_ms=dms)
+            extra["h3_raw_ids_bitwise"] = True
+
+        # H4 with the predict-order epilogue, as the build discretizes:
+        # the whole wrapper (plan + kernel), its device time in the assign
+        # kernel and in the plan kernels, and the plain version
+        kw = dict(n_states=SS, **h4_kw)
+        ms = cuda_ms(lambda: sa.pair_assign(X_p, X_c, pb, cb, *bk, **kw), reps)
+        dms = device_ms(lambda: sa.pair_assign(X_p, X_c, pb, cb, *bk, **kw),
+                        "pair_assign_kernel", reps)
+        plan_dms = device_ms(lambda: sa.pair_assign(X_p, X_c, pb, cb, *bk, **kw),
+                             "plan_", reps)
+        plan = sa._bin_tiles(pb, cb, bk[1], bk[2])
+        require(all(torch.equal(a, b) for a, b in
+                    zip(plan, sa._bin_tiles_plain(pb, cb, bk[1], bk[2]))),
+                f"H4 [{regime}] plan kernels differ from the plain plan")
+        del plan
+        pms = cuda_ms(lambda: sa.pair_assign_plain(X_p, X_c, pb, cb, *bk, **kw),
                       reps)
         # Score gap (f64) between the kernel's and the plain version's
         # chosen centers: 0 when every id agrees
-        gap = _score_gap(fc, bk, rk[1], rp[1])
-        record("pair_assign", regime, ms, pms, gap, m1 + m2, t1 + t2,
-               K=bk[0].shape[0])
-    emit(dict(phase="kernels", setup_s=setup_s, reps=reps))
+        gap = _score_gap(X_c, bk, rk[1], rp[1])
+        bound = _bound([X_p, X_c, pb, cb, s["basis_p"], s["basis_c"], s["target_c"],
+                        *bk, *rk], 2 * pairs * Fx)
+        record("pair_assign", regime, ms, pms, gap, m1 + m2, t1 + t2, bound, mm,
+               K=bk[0].shape[0], F=int(Fx), kernel_ms=dms,
+               plan_kernels_ms=plan_dms, **extra)
+        return ms, dms
+
+    h4_ms = {}
+    h4_ms["K=250"] = h4("K=250", fp, fc, s["pbins"], s["cbins"], bank, True)
+    h4_ms["K=3200"] = h4("K=3200,bins=128", fp, fc, bins_p_w, bins_c_w, bank_w, True)
+    del bank_w, bins_p_w, bins_c_w
+    # Aggregated clustering's shape: every row in one bin of 300 centers
+    zeros = torch.zeros(N, dtype=torch.int32, device=dev)
+    bank_1 = _wide_bank(fc, zeros, 1, 300, 8, rng)
+    h4_ms["one_bin"] = h4("one_bin,K=300", fp, fc, zeros, zeros, bank_1, False)
+    del bank_1
+    # 300 features (batch PCA at 100 atoms keeps all): 12 bins x 25
+    gen = torch.Generator(dev).manual_seed(9)
+    fp3 = torch.randn(N, 300, device=dev, generator=gen)
+    fc3 = torch.randn(N, 300, device=dev, generator=gen)
+    b12p = torch.as_tensor(rng.integers(0, 12, N).astype(np.int32), device=dev)
+    b12c = torch.as_tensor(rng.integers(0, 12, N).astype(np.int32), device=dev)
+    bank_3 = _wide_bank(fc3, b12c, 12, 25, 10, rng)
+    h4_ms["F=300"] = h4("F=300,bins=12x25", fp3, fc3, b12p, b12c, bank_3, False)
+    del fp3, fc3, bank_3
+    (ms_a, dev_a), (ms_b, dev_b) = h4_ms["K=250"], h4_ms["K=3200"]
+    emit(dict(phase="kernels", setup_s=setup_s, reps=reps,
+              h4_ms_ratio_k3200_over_k250=ms_b / ms_a,
+              h4_device_ms_ratio_k3200_over_k250=dev_b / dev_a if dev_a and dev_b else None))
 
 
 def _score_gap(X, bank, ids_a, ids_b):
@@ -362,7 +500,8 @@ def _build(data, device, scan, n_clusters, quiet=True):
     from msm_we_tpu_torch.data import ArrayWEDataset
     from msm_we_tpu_torch.model import modelWE
 
-    model = modelWE(device=device)
+    # device None: the model's default, the card
+    model = modelWE() if device is None else modelWE(device=device)
     t0 = time.perf_counter()
     model.build_analyze_model(
         file_paths=ArrayWEDataset(data),
@@ -459,7 +598,7 @@ def phase_main(args, summary):
         summary["hot_step_" + tier] = dict(step_ms=step_s * 1e3,
                                            frames_per_s=N / step_s)
     del staged
-    fn, eargs = entry("cuda")
+    fn, eargs = entry()  # the default device: the card
     fm, pss, flux, residual = fn(*eargs)
     torch.cuda.synchronize()
     require(bool(torch.isfinite(pss).all()), "entry() pSS not finite")
@@ -467,9 +606,12 @@ def phase_main(args, summary):
               ss_residual=float(residual)))
 
     builds = []
-    for _ in range(2):  # cold (first use of every path), then warm
-        secs, model = _build(data, "cuda", True, 25)
+    # cold (first use of every path), then warm with no device given
+    for device in ("cuda", None):
+        secs, model = _build(data, device, True, 25)
         builds.append(secs)
+    require(model.device.type == "cuda",
+            f"modelWE() with no device built on {model.device}")
     counts = sa.launch_counts()
     emit(dict(phase="launch_counts", **counts))
     require(np.isfinite(model.JtargetSS) and model.JtargetSS > 0,
@@ -1046,52 +1188,59 @@ def _fit_error(method, got, want):
     return err
 
 
+def _build_ids_check(name, model):
+    """The build's child features and final stratified bank through H4 and
+    its plain version on the card: ids equal except at near-ties."""
+    import numpy as np
+    import torch
+
+    from msm_we_tpu_torch.ops import stratified_assign as sa
+
+    strat, dev = model._strat, model.device
+    X = torch.as_tensor(np.asarray(model._features["child"], np.float32), device=dev)
+    eff = strat.we_remap[np.asarray(model._raw_we_bins()[1])]
+    bins = torch.as_tensor(eff.astype(np.int32), device=dev)
+    centers, _counts = strat._device_state()
+    cb, valid, _init = strat._device_meta()
+    bank = (centers.contiguous(), cb.to(torch.int32).contiguous(), valid)
+    ids_k = sa.pair_assign(None, X, None, bins, *bank)
+    ids_p = sa.pair_assign_plain(None, X, None, bins, *bank)
+    torch.cuda.synchronize()
+    return _compare_ids(name, "build", ids_k, ids_p, len(centers) + 2, X, bins, bank)
+
+
 def _reduction_builds():
-    """(d) TICA and VAMP fits at 100 atoms (300 raw features: the device
-    f32 pair moments), each against the CPU f64 fit; at that width their
-    outputs exceed the 128 features the kernel holds per row, so the
-    build must raise ``NotImplementedError``. Then TICA, VAMP and batch
-    PCA builds at 40 atoms (120 raw features, device moments forced;
-    batch PCA keeps every component), each fit against the CPU f64 fit."""
+    """(d) TICA, VAMP and batch-PCA builds at 100 atoms (300 raw features:
+    the device f32 pair moments; TICA and VAMP keep more than 128
+    components, batch PCA all 300), each fit against the CPU f64 fit, with
+    H4 launched on rows wider than 128 features, and the build's ids held
+    to the plain version on its own features and bank."""
     from msm_we_tpu_torch.data import SynthWESettings, generate_trajectory_arrays
 
-    def make(n_atoms):
-        return generate_trajectory_arrays(SynthWESettings(
-            n_iterations=102, n_segments=1_000, n_atoms=n_atoms, seed=17, warmup=20))
-
     lines, total = [], {}
-    gen_s, wide = _timed(lambda: make(100))
-    for method in ("tica", "vamp"):
-        fit_s, g = _timed(lambda: _reduction_fit(wide, 100, method, "cuda"))
-        c = _reduction_fit(wide, 100, method, "cpu", device_moments=False)
-        err = _fit_error(method, g, c)
-        raised = None
-        try:
-            _default_build(wide, "cuda", n_atoms=100, dimreduce_method=method)
-        except NotImplementedError as e:
-            raised = str(e)
-        require(g.ndim <= 128 or raised is not None,
-                f"{method}: a {g.ndim}-feature build did not raise on the card")
-        lines.append(dict(check="reduction_fit", method=method, n_atoms=100,
-                          raw_features=300, device_moments=True, ndim=int(g.ndim),
-                          generate_s=gen_s, fit_s=fit_s, max_abs_err_vs_f64=err,
-                          build_raised=raised))
-    del wide
-    gen_s, data = _timed(lambda: make(40))
+    gen_s, wide = _timed(lambda: generate_trajectory_arrays(SynthWESettings(
+        n_iterations=102, n_segments=1_000, n_atoms=100, seed=17, warmup=20)))
     for method in ("tica", "vamp", "batch-pca"):
-        dim_kw = {"device_moments": True}
+        fit_s, g = _timed(lambda: _reduction_fit(wide, 100, method, "cuda"))
+        ref = _reduction_fit(wide, 100, method, "cpu", device_moments=False)
+        fit_err = _fit_error(method, g, ref)
+        del g
         (secs, model), counts = _counted(lambda: _default_build(
-            data, "cuda", n_atoms=40, dimreduce_method=method, dim_reduce_kwargs=dim_kw))
+            wide, "cuda", n_atoms=100, dimreduce_method=method))
         jv = _check_build(f"{method} build", model, counts)
-        ref = _reduction_fit(data, 40, method, "cpu", device_moments=False)
+        require(model.ndim > 128, f"{method}: {model.ndim} features, not the wide rows")
         err = _fit_error(method, model, ref)
+        mism, ties = _build_ids_check(method, model)
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
-        lines.append(dict(check="reduction_build", method=method, n_atoms=40,
-                          raw_features=120, device_moments=True, ndim=int(model.ndim),
-                          generate_s=gen_s, seconds=secs, stages=_stages(model),
+        lines.append(dict(check="reduction_build", method=method, n_atoms=100,
+                          raw_features=300, device_moments=True, ndim=int(model.ndim),
+                          generate_s=gen_s, fit_s=fit_s, fit_max_abs_err_vs_f64=fit_err,
+                          seconds=secs, stages=_stages(model),
                           max_abs_err_vs_f64=err, JtargetSS=float(model.JtargetSS),
-                          validation_JtargetSS=jv, launch_counts=counts))
+                          validation_JtargetSS=jv, launch_counts=counts,
+                          h4_id_mismatches=mism, h4_near_ties=ties))
+        del model
     return lines, total
 
 
@@ -1185,12 +1334,14 @@ def main(argv=None):
     for name, info in KERNEL_INFO.items():
         k = summary.get(name, {})
         kernels.append(dict(
-            name=name, route="cuda", source=SOURCE,
+            name=name, route="cuda", source=info["source"],
             replaces=info["replaces"], launches=launches.get(name),
             launches_analysis=launches_analysis.get(name),
             launches_configs=launches_configs.get(name),
             max_abs_err=k.get("max_abs_err"), ms=k.get("ms"),
-            plain_ms=k.get("plain_ms"),
+            plain_ms=k.get("plain_ms"), bound_ms=k.get("bound_ms"),
+            bound_by=k.get("bound_by"), library_ms=None, mm_ms=k.get("mm_ms"),
+            kernel_ms=k.get("kernel_ms"),
         ))
     emit(dict(kernels=kernels))
     print(smi, flush=True)

@@ -6,9 +6,12 @@ JAX package (``docs/design.md``): geometry in exact f32 (TF32 would move
 near-tie cluster assignments), accumulated statistics in f64, small solves
 in host f64.
 
-Nothing in the port picks a device on its own: functions take an explicit
-``device`` (or follow the device of the tensors they are given). CPU
-tensors run the plain PyTorch versions; CUDA tensors launch the
+The port's entry points (``modelWE``, ``modelWE.load``, ``entry``,
+``hot_step``) run on the card by default; a caller asks for the CPU with
+``device="cpu"``. Everything below them takes the explicit device it is
+given (or follows the device of its tensors), and nothing falls back to
+the CPU: ``as_device("cuda")`` raises where no CUDA device is available.
+CPU tensors run the plain PyTorch versions; CUDA tensors launch the
 hand-written kernels or raise.
 """
 from __future__ import annotations

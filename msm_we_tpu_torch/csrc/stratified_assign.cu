@@ -1,13 +1,15 @@
 // Stratified nearest-center assignment for Hopper (sm_90a): the hand-written
-// CUDA family that replaces the four Pallas TPU kernels of
+// CUDA family that replaces three of the four Pallas TPU kernels of
 // msm_we_tpu/ops/pallas_kernels.py.
 //
 //   msm_transform_assign_child  <- _transform_assign_child_kernel (H1)
 //   msm_transform_assign        <- _transform_assign_kernel       (H2)
 //   msm_assign_flux             <- _kernel                        (H3)
-//   msm_pair_assign             <- _assign_kernel                 (H4)
 //
-// One templated kernel serves all four. Per row (a WE segment's parent or
+// H4 (_assign_kernel, msm_pair_assign) has its own bin-grouped kernel in
+// pair_assign.cu, which scores bitwise as this family does.
+//
+// One templated kernel serves all three. Per row (a WE segment's parent or
 // child frame): optionally project raw coordinates to features (g = x P),
 // score every valid center of the row's WE bin as |c|^2 - 2 g.c (the
 // production score of ops/kmeans.py::masked_scores; the transform entry
@@ -29,7 +31,7 @@
 //    float4 so one shared load feeds four FFMAs. The small shared footprint
 //    (16 KB P pass, 16 KB bank tile) leaves L1 room for the rows in flight
 //    and lets registers, not shared memory, bound residency.
-//  * H3/H4 are bound by the N x K x F multiply-adds. The center bank
+//  * H3 is bound by the N x K x F multiply-adds. The center bank
 //    streams through shared memory in tiles of KT centers (32 KB), so any
 //    K fits (3,200 centers x 30 features is 375 KB, more than one block's
 //    shared memory). Each row keeps a running (min, id) across tiles.
@@ -58,7 +60,7 @@ namespace {
 
 constexpr int kThreads = 128;           // rows per block, one per thread
 constexpr int kProjTileBytes = 16384;   // P rows staged per transform pass
-// Center tile in shared memory: features in (H3/H4), or after a transform
+// Center tile in shared memory: features in (H3), or after a transform
 // (H1/H2), where a smaller tile keeps L1 free for the raw rows
 constexpr int kBankTileBytes = 32768;
 constexpr int kTransformBankTileBytes = 16384;
@@ -415,23 +417,6 @@ int msm_assign_flux(const float* fp, const float* fc, const int32_t* pbins,
                               static_cast<const float*>(w),
                               static_cast<float*>(fm), n, 0, F, n_states,
                               kFluxOrder, stream);
-}
-
-// H4: nearest valid same-bin center ids for parent and child feature rows
-// (fp null: the child set alone), with an optional override epilogue
-// (overrides: 0 none, 1 flux order, 2 predict order; masks may be null).
-int msm_pair_assign(const float* fp, const float* fc, const int32_t* pbins,
-                    const int32_t* cbins, const uint8_t* basis_p,
-                    const uint8_t* basis_c, const uint8_t* target_p,
-                    const uint8_t* target_c, const float* centers,
-                    const float* c2, const int32_t* cbin, const uint8_t* valid,
-                    int n, int F, int K, int n_states, int overrides,
-                    int32_t* pidx, int32_t* cidx, void* stream) {
-  const RowSet parent = make_rows(fp, pbins, basis_p, target_p, pidx, nullptr);
-  const RowSet child = make_rows(fc, cbins, basis_c, target_c, cidx, nullptr);
-  return launch<false, float>(parent, child, nullptr,
-                              make_bank(centers, c2, cbin, valid, K), nullptr,
-                              nullptr, n, 0, F, n_states, overrides, stream);
 }
 
 }  // extern "C"

@@ -7,6 +7,9 @@
 ``make_problem()`` problem: raw coordinates -> PCA transform -> nearest
 valid center in the segment's WE bin -> basis/target overrides -> flux
 scatter -> steady state.
+
+Both run on the card unless the caller asks for the CPU
+(``device="cpu"``); without a CUDA device the default raises.
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ def _state_masks(n_states, device):
     return ids == n_states - 2, ids == n_states - 1
 
 
-def entry(device):
+def entry(device="cuda"):
     """``(hamsm_forward, example_args)`` on ``device``: the
     ``tiny_stratified_problem`` through assign + overrides + flux (one H3
     launch on CUDA) and ``steady_state_from_flux``. ``hamsm_forward``
@@ -109,7 +112,7 @@ def stage_problem(problem, tier, device):
     return s
 
 
-def hot_step(problem, tier="two_transform", device=None):
+def hot_step(problem, tier="two_transform", device="cuda"):
     """One hot step. ``problem`` is a ``make_problem()`` dict (uploaded to
     ``device`` first) or the output of :func:`stage_problem`.
 

@@ -12,7 +12,9 @@ names are the JAX package's (``fluxMatrixRaw``, ``fluxMatrix``, ``pSS``,
 ``JtargetSS``, ``stage_timings``, ``dtrajs``, ``pair_dtrajs``,
 ``validation_models``, ...).
 
-One device replaces the JAX package's mesh: ``modelWE(device=...)``. With
+One device replaces the JAX package's mesh: ``modelWE(device="cuda")``,
+the default; a caller asks for the CPU with ``device="cpu"`` (the tests
+do), and nothing falls back to the CPU when no card is present. With
 CUDA the discretization, the streaming clustering scan, the device-family
 seeding, the aggregated k-means and the cleaning re-assignments launch the
 hand-written kernels of ``ops/stratified_assign.py``; with the CPU they
@@ -154,13 +156,13 @@ class _AggregateClustersShim:
 
 class modelWE:
     """History-augmented Markov state model estimation from WE data, on
-    ``device`` ("cpu" runs the plain PyTorch versions, "cuda" the
-    kernels)."""
+    ``device`` ("cuda", the default, runs the kernels; "cpu" the plain
+    PyTorch versions). Without a CUDA device the default raises."""
 
     class BlockValidationError(Exception):
         pass
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cuda"):
         self.device = as_device(device)
         # The discretization route: pair launches (True) or the predict
         # route over the 2N concatenated rows (False);
@@ -1219,7 +1221,7 @@ class modelWE:
         log.info(f"Model saved to {path}")
 
     @classmethod
-    def load(cls, path, device="cpu"):
+    def load(cls, path, device="cuda"):
         """Unpickle a model saved by :meth:`save` onto ``device``. Unpickle
         only files this program wrote: unpickling can run arbitrary code."""
         import pickle

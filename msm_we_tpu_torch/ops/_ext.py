@@ -1,8 +1,9 @@
 """Build and bind the CUDA kernel library of ``msm_we_tpu_torch/csrc``.
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface and loaded with :mod:`ctypes` (no PyTorch headers,
-so a build takes seconds). The library is built at first use into
+Each source is compiled by its own ``nvcc`` for ``sm_90a``, all at once,
+and the objects are linked into one shared library with a plain C
+interface, loaded with :mod:`ctypes` (no PyTorch headers, so a build takes
+seconds). The library is built at first use into
 ``msm_we_tpu_torch/_build/``, named by a hash of the sources and the
 compiler flags, and moved into place with an atomic rename so that two
 processes never load half a library. Nothing here runs at import time.
@@ -22,20 +23,20 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-# argtypes of each extern "C" entry point in csrc/stratified_assign.cu
+# argtypes of each extern "C" entry point in csrc/*.cu
 _SIGNATURES = {
     "msm_transform_assign_child": [_P] * 9 + [_I] * 5 + [_P, _P, _P],
     "msm_transform_assign": [_P] * 9 + [_I] + [_P] * 5 + [_I] * 5 + [_P] * 4,
     "msm_assign_flux": [_P] * 9 + [_I] + [_P] * 4 + [_I] * 4 + [_P] * 4,
-    "msm_pair_assign": [_P] * 12 + [_I] * 5 + [_P] * 3,
+    "msm_pair_plan_keys": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P],
+    "msm_pair_plan_tiles": [_P, _I, _P, _I, _P, _P, _P, _I, _P],
+    "msm_pair_assign": [_P] * 8 + [_I] + [_P] * 3 + [_I] * 4 + [_P] * 3,
 }
 
 _lock = threading.Lock()
@@ -74,25 +75,36 @@ def library_path():
     return BUILD_DIR / f"libmsm_we_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds):
+    """Run the commands in parallel; raise with the log of any failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                "nvcc failed building the CUDA kernels:\n" + " ".join(cmd) + "\n" + log
+            )
+    return "".join(logs)
+
+
 def _compile(target):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                "nvcc failed building the CUDA kernels:\n"
-                + " ".join(cmd) + "\n" + res.stdout + res.stderr
-            )
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs, cmds = [], []
+        for src in _sources():
+            if src.suffix != ".cu":
+                continue
+            obj = os.path.join(tmpdir, src.stem + ".o")
+            objs.append(obj)
+            cmds.append([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)])
+        log = _run(cmds)
+        tmp = os.path.join(tmpdir, "lib.so")
+        log += _run([[nvcc, *_ARCH, "-shared", "-o", tmp, *objs]])
         os.replace(tmp, target)  # atomic: readers see all or nothing
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return time.perf_counter() - t0, res.stdout + res.stderr
+    return time.perf_counter() - t0, log
 
 
 def library():

@@ -87,8 +87,8 @@ def assign_flat(X, C, valid):
     """Nearest valid center of ``C`` for each row of ``X``: flat int32 ids.
 
     :func:`masked_assign` with every row and center in one bin, so on CUDA
-    it is the H4 kernel (at most 128 features; wider rows raise
-    ``NotImplementedError`` there). JAX's ``assign_flat`` scores the full
+    it is the H4 kernel (any feature width: one tile plan of one bin).
+    JAX's ``assign_flat`` scores the full
     ``|x|^2 - 2 x.c + |c|^2`` and also returns the distance; this scores
     ``|c|^2 - 2 x.c``, so ids may differ from JAX's only at near-ties."""
     zeros_x = torch.zeros(X.shape[0], dtype=torch.int32, device=X.device)

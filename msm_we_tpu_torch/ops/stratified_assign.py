@@ -1,8 +1,8 @@
 """Fused stratified assignment kernels and their plain PyTorch versions.
 
 Counterpart of ``msm_we_tpu/ops/pallas_kernels.py``. Each wrapper is named
-for its Pallas kernel and launches one entry point of
-``csrc/stratified_assign.cu`` on CUDA tensors:
+for its Pallas kernel and launches one entry point on CUDA tensors: H1-H3
+of ``csrc/stratified_assign.cu``, H4 of ``csrc/pair_assign.cu``:
 
 ==========================  ==============================================
 ``transform_assign_child``  H1 ``fused_transform_assign_child``
@@ -13,7 +13,7 @@ for its Pallas kernel and launches one entry point of
 
 What the Pallas wrappers needed for Mosaic is gone: no (n, 1) columns, no
 128-padding, no one-hot flux matmul. Two differences from the Pallas
-kernels are deliberate, so that one family serves production:
+kernels are deliberate, so that the kernels serve production:
 
 * scores are the production ``|c|^2 - 2 x.c`` (``ops/kmeans.py``), or
   ``c2adj - 2 (x P).c`` with the PCA centering folded into ``c2adj`` for
@@ -24,6 +24,14 @@ kernels are deliberate, so that one family serves production:
 
 The bank must be compact (valid centers first, in global-id order), so the
 row index of the winning center is its global cluster id.
+
+H1-H3 hold a row's features in registers, at most ``MAX_FEATURES``; wider
+rows raise ``NotImplementedError`` on CUDA. H4 takes any width: its
+wrapper groups the rows by bin first (``_bin_tiles``: small plan kernels
+and one stable ``torch.sort`` on the device, with no host
+synchronisation; ``_bin_tiles_plain`` is its plain version) and the
+kernel streams features and the bin's centers through shared memory, one
+tile of one bin a block.
 
 A wrapper given CPU tensors runs the ``*_plain`` version beside it (dense
 masked scores, ``argmin``, ``_apply_overrides``, ``index_add_``). Given CUDA
@@ -53,7 +61,9 @@ __all__ = [
     "reset_launch_counts",
 ]
 
-MAX_FEATURES = 128  # register-resident feature rows in the kernel
+MAX_FEATURES = 128  # register-resident feature rows in the H1-H3 kernel
+TILE_ROWS = 64  # rows per H4 tile (kTileRows in csrc/pair_assign.cu)
+_NO_BIN = 2**40  # sort key of an invalid center: no row bin reaches it
 _ORDERS = {None: 0, "flux": 1, "predict": 2}
 
 
@@ -213,13 +223,99 @@ def _check_bank(centers, center_bin, valid, F, device):
     return K
 
 
+def _check_rows(n):
+    if n >= 2**31:
+        raise ValueError(f"{n} rows exceed the kernel's 32-bit row index")
+
+
 def _check_sizes(n, F):
     if F > MAX_FEATURES:
         raise NotImplementedError(
             f"the CUDA kernel holds at most {MAX_FEATURES} features per row, got {F}"
         )
-    if n >= 2**31:
-        raise ValueError(f"{n} rows exceed the kernel's 32-bit row index")
+    _check_rows(n)
+
+
+def _bin_tiles_plain(pbins, cbins, center_bin, valid, tile_rows=TILE_ROWS):
+    """The H4 launch plan in plain torch: rows grouped by bin, in tiles of
+    one bin.
+
+    The plan's rows are the parent rows (``pbins``; None: none), then the
+    child rows (``cbins``). Valid centers are sorted stably by bin, invalid
+    ones last (``cperm``: sorted position -> center id; the identity for a
+    compact bank ordered by bin). A row's group is the sorted position of
+    its bin's first valid center; rows whose bin has no valid center (bin
+    -1 included) form the last group, ``K``, which has no centers.
+    ``order`` sorts the rows stably by group. ``tiles`` (n_grid, 4) lists,
+    per block, (first row in ``order``, rows, first center in ``cperm``,
+    centers): at most ``tile_rows`` rows of one group, groups in order,
+    then zero tiles up to ``n_grid = ceil(R / tile_rows) + min(K, R) + 1``,
+    a bound on the tile count that needs no host synchronisation. Returns
+    ``(order int64, cperm int32, tiles int32)``.
+    """
+    bins = cbins if pbins is None else torch.cat([pbins, cbins])
+    dev = bins.device
+    R, K = bins.shape[0], center_bin.shape[0]
+    ckey, cperm = torch.sort(
+        torch.where(valid, center_bin.long(), _NO_BIN), stable=True)
+    b = bins.long()
+    lo = torch.searchsorted(ckey, b)
+    hi = torch.searchsorted(ckey, b, right=True)
+    rkey, order = torch.sort(torch.where(hi > lo, lo, K), stable=True)
+    # Rows and centers of each group g = 0..K
+    bounds = torch.searchsorted(rkey, torch.arange(K + 2, device=dev))
+    rstart, rcount = bounds[:-1], bounds[1:] - bounds[:-1]
+    run_end = torch.searchsorted(ckey, ckey, right=True)
+    ncent = torch.cat([run_end - torch.arange(K, device=dev),
+                       torch.zeros(1, dtype=torch.long, device=dev)])
+    ntiles = (rcount + tile_rows - 1) // tile_rows
+    tend = torch.cumsum(ntiles, 0)
+    n_grid = -(-R // tile_rows) + min(K, R) + 1
+    t = torch.arange(n_grid, device=dev)
+    g = torch.searchsorted(tend, t, right=True)  # K + 1 past the last tile
+    live = g <= K
+    g = g.clamp(max=K)
+    j = t - (tend[g] - ntiles[g])  # tile number inside its group
+    first = rstart[g] + j * tile_rows
+    nrows = (rcount[g] - j * tile_rows).clamp(max=tile_rows)
+    tiles = torch.stack([first, nrows, g, ncent[g]], 1)
+    tiles = torch.where(live[:, None], tiles, torch.zeros_like(tiles))
+    return order, cperm.to(torch.int32), tiles.to(torch.int32).contiguous()
+
+
+def _bin_tiles(pbins, cbins, center_bin, valid):
+    """The H4 launch plan (see :func:`_bin_tiles_plain`) on the tensors'
+    device: the plain version on the CPU; on CUDA the plan kernels of
+    ``csrc/pair_assign.cu`` around one stable ``torch.sort`` of the row
+    groups, equal to the plain version element for element, with no host
+    synchronisation. The tensors must already be checked."""
+    if not _on_cuda(cbins, "cbins"):
+        return _bin_tiles_plain(pbins, cbins, center_bin, valid)
+    dev = cbins.device
+    n = cbins.shape[0]
+    R = n if pbins is None else 2 * n
+    K = center_bin.shape[0]
+    n_grid = -(-R // TILE_ROWS) + min(K, R) + 1
+    # One int32 workspace: tiles first (16-byte rows), then cperm, the row
+    # groups and the per-group scratch
+    ws = torch.empty(4 * n_grid + K + R + 2 * K + 3, dtype=torch.int32, device=dev)
+    tiles = ws[:4 * n_grid].view(n_grid, 4)
+    cperm = ws[4 * n_grid:4 * n_grid + K]
+    rkey = ws[4 * n_grid + K:4 * n_grid + K + R]
+    scratch = ws[4 * n_grid + K + R:]
+    ckey = torch.empty(K, dtype=torch.int64, device=dev)
+    lib = library()
+    with torch.cuda.device(dev):  # launch in the tensors' device context
+        check(lib.msm_pair_plan_keys(
+            _ptr(pbins), _ptr(cbins), n, _ptr(center_bin), _ptr(valid), K,
+            _ptr(cperm), _ptr(ckey), _ptr(rkey), _stream(dev),
+        ), "pair_assign plan")
+        rkey_s, order = torch.sort(rkey, stable=True)
+        check(lib.msm_pair_plan_tiles(
+            _ptr(rkey_s), R, _ptr(ckey), K, _ptr(scratch),
+            _ptr(scratch) + 4 * (K + 2), _ptr(tiles), n_grid, _stream(dev),
+        ), "pair_assign plan")
+    return order, cperm, tiles
 
 
 def _rows(n, device, names_values, dtype, optional=()):
@@ -384,7 +480,9 @@ def pair_assign(fp, fc, pbins, cbins, centers, center_bin, valid,
     and child feature rows, plus an optional override epilogue (``order``
     None, ``"flux"`` or ``"predict"``; masks may be None). ``fp=None``
     assigns the ``fc`` rows alone and returns ``cidx``; otherwise returns
-    ``(pidx, cidx)``, int32."""
+    ``(pidx, cidx)``, int32. Any feature width: on CUDA the rows are
+    grouped by bin first (``_bin_tiles``) and the kernel scores each tile
+    of one bin against that bin's centers only."""
     if not _on_cuda(fc, "fc"):
         return pair_assign_plain(
             fp, fc, pbins, cbins, centers, center_bin, valid,
@@ -405,21 +503,23 @@ def pair_assign(fp, fc, pbins, cbins, centers, center_bin, valid,
     elif basis_p is not None or target_p is not None or pbins is not None:
         raise ValueError("parent bins/masks given without parent rows")
     _rows(N, dev, masks, torch.bool, optional=[m for m, _ in masks])
-    K = _check_bank(centers, center_bin, valid, F, dev)
-    _check_sizes(N, F)
+    _check_bank(centers, center_bin, valid, F, dev)
+    _check_rows(2 * N if pair else N)
     if order is not None:
         _check_states(n_states)
     cidx = torch.empty(N, dtype=torch.int32, device=dev)
     pidx = torch.empty(N, dtype=torch.int32, device=dev) if pair else None
     if N > 0:
+        row_order, cperm, tiles = _bin_tiles(pbins if pair else None, cbins,
+                                             center_bin, valid)
         c2 = (centers * centers).sum(1).contiguous()
         with torch.cuda.device(dev):  # launch in the tensors' device context
             err = library().msm_pair_assign(
-                _ptr(fp), _ptr(fc), _ptr(pbins), _ptr(cbins),
-                _ptr(basis_p), _ptr(basis_c), _ptr(target_p), _ptr(target_c),
-                _ptr(centers), _ptr(c2), _ptr(center_bin), _ptr(valid),
-                N, F, K, n_states or 0, _ORDERS[order],
-                _ptr(pidx), _ptr(cidx), _stream(dev),
+                _ptr(fp), _ptr(fc), _ptr(basis_p), _ptr(basis_c),
+                _ptr(target_p), _ptr(target_c), _ptr(row_order), _ptr(tiles),
+                tiles.shape[0], _ptr(cperm), _ptr(centers), _ptr(c2), N, F,
+                n_states or 0, _ORDERS[order], _ptr(pidx), _ptr(cidx),
+                _stream(dev),
             )
         check(err, "pair_assign")
         pair_assign.launches += 1

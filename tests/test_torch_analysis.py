@@ -305,7 +305,7 @@ def test_save_load_round_trip(built, tmp_path):
     m = built[1]
     path = tmp_path / "model.pkl"
     m.save(path)
-    loaded = modelWE.load(path)
+    loaded = modelWE.load(path, device="cpu")
     assert loaded.device == torch.device("cpu")
     assert loaded.JtargetSS == m.JtargetSS
     np.testing.assert_array_equal(loaded.fluxMatrix, m.fluxMatrix)

@@ -269,12 +269,49 @@ def test_west_h5_paths_and_lagged_flux_raise(west_h5, arrays):
     """west.h5 paths are not ported; a lag with no usable history raises
     as in the JAX package (lagged flux itself: test_torch_analysis.py)."""
     with pytest.raises(NotImplementedError, match="westh5"):
-        modelWE().initialize([west_h5], COMMON["ref_struct"], "x",
+        modelWE(device="cpu").initialize([west_h5], COMMON["ref_struct"], "x",
                              basis_pcoord_bounds=[[9.0, 10.0]],
                              target_pcoord_bounds=[[0.0, 1.0]])
     m = _port_build(arrays, True)
     with pytest.raises(ValueError, match="enough history"):
         m.get_fluxMatrix(N_ITER)
+
+
+def _default_device_of(entry_point, tmp_path):
+    """The device ``entry_point`` runs on when no device is given."""
+    from msm_we_tpu_torch.entry import entry, hot_step
+    from msm_we_tpu_torch.testing import make_problem
+
+    if entry_point == "modelWE":
+        return modelWE().device
+    if entry_point == "load":
+        path = tmp_path / "m.pkl"
+        modelWE(device="cpu").save(path)
+        return modelWE.load(path).device
+    if entry_point == "entry":
+        return entry()[1][0].device
+    p = make_problem(n_segments=256, n_raw_features=16, n_components=4,
+                     n_bins=4, k_per_bin=3, seed=1)
+    return hot_step(p)["fm"].device
+
+
+@pytest.mark.parametrize("entry_point", ["modelWE", "load", "entry", "hot_step"])
+def test_entry_points_default_to_the_card(entry_point, tmp_path):
+    """``modelWE()``, ``modelWE.load(path)``, ``entry()`` and
+    ``hot_step(problem)`` run on the card when no device is given; without
+    CUDA they raise the ``as_device`` error (no fallback to the CPU)."""
+    import inspect
+
+    from msm_we_tpu_torch.entry import entry, hot_step
+
+    fn = {"modelWE": modelWE.__init__, "load": modelWE.load, "entry": entry,
+          "hot_step": hot_step}[entry_point]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device is available"):
+            _default_device_of(entry_point, tmp_path)
+    else:
+        assert _default_device_of(entry_point, tmp_path).type == "cuda"
 
 
 def test_port_imports_no_jax_h5py_or_networkx():

@@ -66,6 +66,6 @@ def test_deepcopy_and_save_keep_cuda_models_usable(cuda_device, tmp_path):
     assert m.post_cluster_model.device.type == "cuda"
     assert m.post_cluster_model._strat.device.type == "cuda"
     m.save(tmp_path / "m.pkl")
-    loaded = modelWE.load(tmp_path / "m.pkl")
+    loaded = modelWE.load(tmp_path / "m.pkl", device="cpu")
     assert loaded.device.type == "cpu" and loaded._strat.device.type == "cpu"
     assert loaded.JtargetSS == m.JtargetSS
