@@ -9,11 +9,12 @@ Phases, each printing one JSON line:
 2. ``build``: compile the kernel library from ``msm_we_tpu_torch/csrc``.
 3. ``kernels``: every kernel against its plain PyTorch version on the same
    device tensors at the main path's shapes (``make_problem()``: 102,400
-   segments, raw 900 -> 30 features, 250 centers). H3 and H4 also at 3,200
-   centers over 128 bins, H4 also on one bin of 300 centers (aggregated
-   clustering) and at 300 features (12 bins x 25). Ids must agree except
-   at near-ties, dyadic f64 flux bitwise, and H4's ids must equal H3's raw
-   ids bitwise. Median times of kernel, plain version and the dense
+   segments, raw 900 -> 30 features, 250 centers). Every kernel also at
+   3,200 centers over 128 bins and at 300 features over 12 bins x 25 (H1/H2:
+   raw 900 -> 300 with a seeded P), H4 also on one bin of 300 centers
+   (aggregated clustering). Ids must agree except at near-ties, H1's
+   features to 1e-4 relative, dyadic f64 flux bitwise, and H4's ids must
+   equal H3's raw ids bitwise. Median times of kernel, plain version and the dense
    ``torch.mm`` each kernel cannot avoid (``mm_ms``) from CUDA events;
    ``bound_ms`` is the least time the card could take (bytes over 3.35
    TB/s or FLOPs over 67 TFLOP/s f32, whichever is larger).
@@ -249,8 +250,6 @@ def phase_kernels(args, summary):
     s = stage_problem(prob, "two_transform", dev)
     setup_s = time.perf_counter() - t0
     N, D = s["raw_child"].shape
-    F = s["comp"].shape[1]
-    S = s["n_states"]
     bank = (s["centers"], s["center_bin"], s["valid"])
     rng = np.random.default_rng(5)
     # Dyadic f64 weights: every cell sum is exact in any order
@@ -272,89 +271,108 @@ def phase_kernels(args, summary):
                                  bound_ms=bound[0], bound_by=bound[1],
                                  mm_ms=mm_ms, kernel_ms=extra.get("kernel_ms"))
 
-    a2 = sa.c2adj(s["mean"], s["comp"], s["centers"])
-    pairs_p = _same_bin_pairs(s["pbins"], bank)
-    pairs_c = _same_bin_pairs(s["cbins"], bank)
+    def h1h2(regime, mean, proj, pb, cb, bk):
+        """H1 and H2 on the main path's raw rows against their plain
+        versions (ids up to near-ties, H1's features, H2's dyadic f64 flux
+        bitwise); wrapper, device and plain times beside the bound and
+        ``torch.mm`` of raw x P."""
+        SS = bk[0].shape[0] + 2
+        Fx = proj.shape[1]
+        a2 = sa.c2adj(mean, proj, bk[0])
+        pairs_p, pairs_c = _same_bin_pairs(pb, bk), _same_bin_pairs(cb, bk)
+        raw_p, raw_c = s["raw_parent"], s["raw_child"]
 
-    # H1: child rows, raw -> features -> ids (+ features)
-    idx_k, g_k = sa.transform_assign_child(
-        s["raw_child"], s["cbins"], None, None, s["mean"], s["comp"], *bank, S,
-        emit_features=True)
-    idx_p, g_p = sa.transform_assign_child_plain(
-        s["raw_child"], s["cbins"], None, None, s["mean"], s["comp"], *bank, S,
-        emit_features=True)
-    torch.cuda.synchronize()
-    mism, ties = _compare_ids("transform_assign_child", "K=250", idx_k, idx_p,
-                              S, None, s["cbins"], bank, c2=a2,
-                              raw=s["raw_child"], proj=s["comp"])
-    err = float((g_k - g_p).abs().max())
-    require(err <= 1e-4 * float(g_p.abs().max()),
-            f"H1 features differ by {err}")
-    ms = cuda_ms(lambda: sa.transform_assign_child(
-        s["raw_child"], s["cbins"], s["basis_c"], s["target_c"], s["mean"],
-        s["comp"], *bank, S, emit_features=True), reps)
-    pms = cuda_ms(lambda: sa.transform_assign_child_plain(
-        s["raw_child"], s["cbins"], s["basis_c"], s["target_c"], s["mean"],
-        s["comp"], *bank, S, emit_features=True), reps)
-    dms = device_ms(lambda: sa.transform_assign_child(
-        s["raw_child"], s["cbins"], s["basis_c"], s["target_c"], s["mean"],
-        s["comp"], *bank, S, emit_features=True), "stratified_assign_kernel", reps)
-    mm = cuda_ms(lambda: torch.mm(s["raw_child"], s["comp"]), reps)
-    bound = _bound([s["raw_child"], s["cbins"], s["basis_c"], s["target_c"],
-                    s["mean"], s["comp"], *bank, idx_k, g_k],
-                   2 * N * D * F + 2 * pairs_c * F)
-    record("transform_assign_child", "K=250", ms, pms, err, mism, ties, bound, mm,
-           kernel_ms=dms)
+        # H1: child rows, raw -> features -> ids (+ features)
+        idx_k, g_k = sa.transform_assign_child(raw_c, cb, None, None, mean, proj,
+                                               *bk, SS, emit_features=True)
+        idx_p, g_p = sa.transform_assign_child_plain(raw_c, cb, None, None, mean,
+                                                     proj, *bk, SS, emit_features=True)
+        torch.cuda.synchronize()
+        mism, ties = _compare_ids("transform_assign_child", regime, idx_k, idx_p,
+                                  SS, None, cb, bk, c2=a2, raw=raw_c, proj=proj)
+        err = float((g_k - g_p).abs().max())
+        require(err <= 1e-4 * float(g_p.abs().max()),
+                f"H1 [{regime}] features differ by {err}")
+        del g_p
+        h1 = (raw_c, cb, s["basis_c"], s["target_c"], mean, proj, *bk, SS)
+        ms = cuda_ms(lambda: sa.transform_assign_child(*h1, emit_features=True), reps)
+        pms = cuda_ms(lambda: sa.transform_assign_child_plain(*h1, emit_features=True),
+                      reps)
+        dms = device_ms(lambda: sa.transform_assign_child(*h1, emit_features=True),
+                        "stratified_assign_kernel", reps)
+        # The features-only launch (the dedup tier's): the transform alone
+        g_f = sa.transform_assign_child(*h1, features_only=True)[1]
+        require(torch.equal(g_f, g_k), f"H1 [{regime}] features-only launch differs")
+        del g_f
+        fdms = device_ms(lambda: sa.transform_assign_child(*h1, features_only=True),
+                         "stratified_assign_kernel", reps)
+        mm = cuda_ms(lambda: torch.mm(raw_c, proj), reps)
+        bound = _bound([raw_c, cb, s["basis_c"], s["target_c"], mean, proj, *bk,
+                        idx_k, g_k], 2 * N * D * Fx + 2 * pairs_c * Fx)
+        record("transform_assign_child", regime, ms, pms, err, mism, ties, bound, mm,
+               K=bk[0].shape[0], F=int(Fx), kernel_ms=dms,
+               features_only_kernel_ms=fdms)
+        del g_k
 
-    # H2: both raw sets, flux-order overrides, f64 dyadic flux
-    args2 = (s["raw_parent"], s["raw_child"], s["pbins"], s["cbins"])
-    ovr2 = (s["basis_p"], s["basis_c"], s["target_c"], s["mean"], s["comp"],
-            *bank, S)
-    pk, ck, fk = sa.transform_assign(*args2, w64, *ovr2)
-    pp, cp, fpl = sa.transform_assign_plain(*args2, w64, *ovr2)
-    # Raw ids (no overrides) for the near-tie check
-    basis_none = torch.zeros(N, dtype=torch.bool, device=dev)
-    rk = sa.transform_assign(*args2, None, basis_none, basis_none, basis_none,
-                             s["mean"], s["comp"], *bank, S, with_flux=False)
-    rp = sa.transform_assign_plain(*args2, None, basis_none, basis_none,
-                                   basis_none, s["mean"], s["comp"], *bank, S,
-                                   with_flux=False)
-    torch.cuda.synchronize()
-    m1, t1 = _compare_ids("transform_assign", "K=250", rk[0], rp[0], S, None,
-                          s["pbins"], bank, c2=a2, raw=s["raw_parent"],
-                          proj=s["comp"])
-    m2, t2 = _compare_ids("transform_assign", "K=250", rk[1], rp[1], S, None,
-                          s["cbins"], bank, c2=a2, raw=s["raw_child"],
-                          proj=s["comp"])
-    own = _scatter_flux(pk, ck, w64, S)
-    flux_ok = bool(torch.equal(fk, own)) and (
-        (m1 + m2) > 0 or bool(torch.equal(fk, fpl)))
-    require(flux_ok, "H2 dyadic f64 flux is not bitwise equal")
-    err = float((fk - fpl).abs().max())
-    ms = cuda_ms(lambda: sa.transform_assign(*args2, s["w"], *ovr2), reps)
-    pms = cuda_ms(lambda: sa.transform_assign_plain(*args2, s["w"], *ovr2), reps)
-    dms = device_ms(lambda: sa.transform_assign(*args2, s["w"], *ovr2),
-                    "stratified_assign_kernel", reps)
-    mm = cuda_ms(lambda: (torch.mm(s["raw_parent"], s["comp"]),
-                          torch.mm(s["raw_child"], s["comp"])), reps)
-    fm32 = torch.empty((S, S), dtype=torch.float32, device=dev)
-    bound = _bound([*args2, s["w"], *ovr2[:5], *bank, pk, ck, fm32],
-                   4 * N * D * F + 2 * (pairs_p + pairs_c) * F)
-    record("transform_assign", "K=250", ms, pms, err, m1 + m2, t1 + t2, bound,
-           mm, flux_ok, kernel_ms=dms)
+        # H2: both raw sets, flux-order overrides, f64 dyadic flux
+        args2 = (raw_p, raw_c, pb, cb)
+        ovr2 = (s["basis_p"], s["basis_c"], s["target_c"], mean, proj, *bk, SS)
+        pk, ck, fk = sa.transform_assign(*args2, w64, *ovr2)
+        _pp, _cp, fpl = sa.transform_assign_plain(*args2, w64, *ovr2)
+        # Raw ids (no overrides) for the near-tie check
+        none = torch.zeros(N, dtype=torch.bool, device=dev)
+        rk = sa.transform_assign(*args2, None, none, none, none, mean, proj, *bk,
+                                 SS, with_flux=False)
+        rp = sa.transform_assign_plain(*args2, None, none, none, none, mean, proj,
+                                       *bk, SS, with_flux=False)
+        torch.cuda.synchronize()
+        m1, t1 = _compare_ids("transform_assign", regime, rk[0], rp[0], SS, None,
+                              pb, bk, c2=a2, raw=raw_p, proj=proj)
+        m2, t2 = _compare_ids("transform_assign", regime, rk[1], rp[1], SS, None,
+                              cb, bk, c2=a2, raw=raw_c, proj=proj)
+        own = _scatter_flux(pk, ck, w64, SS)
+        flux_ok = bool(torch.equal(fk, own)) and (
+            (m1 + m2) > 0 or bool(torch.equal(fk, fpl)))
+        require(flux_ok, f"H2 [{regime}] dyadic f64 flux is not bitwise equal")
+        err = float((fk - fpl).abs().max())
+        del own, fpl, rk, rp
+        ms = cuda_ms(lambda: sa.transform_assign(*args2, s["w"], *ovr2), reps)
+        pms = cuda_ms(lambda: sa.transform_assign_plain(*args2, s["w"], *ovr2), reps)
+        dms = device_ms(lambda: sa.transform_assign(*args2, s["w"], *ovr2),
+                        "stratified_assign_kernel", reps)
+        mm = cuda_ms(lambda: (torch.mm(raw_p, proj), torch.mm(raw_c, proj)), reps)
+        fm32 = torch.empty((SS, SS), dtype=torch.float32, device=dev)
+        bound = _bound([*args2, s["w"], *ovr2[:5], *bk, pk, ck, fm32],
+                       4 * N * D * Fx + 2 * (pairs_p + pairs_c) * Fx)
+        record("transform_assign", regime, ms, pms, err, m1 + m2, t1 + t2, bound,
+               mm, flux_ok, K=bk[0].shape[0], F=int(Fx), kernel_ms=dms)
+
+    h1h2("K=250", s["mean"], s["comp"], s["pbins"], s["cbins"], bank)
 
     # H3 / H4 on features: the main path's K=250 bank, and a wide bank
-    # (128 bins x 25 = 3,200 centers: K tiling, > 64 bins)
+    # (128 bins x 25 = 3,200 centers: K tiling, > 64 bins), which H1/H2
+    # also score
     off = s["mean"] @ s["comp"]
     fp = (s["raw_parent"] @ s["comp"] - off).contiguous()
     fc = (s["raw_child"] @ s["comp"] - off).contiguous()
-    del s["raw_parent"], args2
     n_wide = 128
     bins_p_w = torch.as_tensor(rng.integers(0, n_wide, N).astype(np.int32),
                                device=dev)
     bins_c_w = torch.as_tensor(rng.integers(0, n_wide, N).astype(np.int32),
                                device=dev)
     bank_w = _wide_bank(fc, bins_c_w, n_wide, 25, 7, rng)
+    h1h2("K=3200,bins=128", s["mean"], s["comp"], bins_p_w, bins_c_w, bank_w)
+    # 300 features from the same raw rows (a seeded P): 12 bins x 25
+    gen = torch.Generator(dev).manual_seed(11)
+    proj3 = torch.randn(D, 300, device=dev, generator=gen) / D ** 0.5
+    rng3 = np.random.default_rng(13)  # keeps ``rng``'s draws as before
+    b12p = torch.as_tensor(rng3.integers(0, 12, N).astype(np.int32), device=dev)
+    b12c = torch.as_tensor(rng3.integers(0, 12, N).astype(np.int32), device=dev)
+    fc3 = (s["raw_child"] @ proj3 - s["mean"] @ proj3).contiguous()
+    bank_3 = _wide_bank(fc3, b12c, 12, 25, 12, rng3)
+    del fc3
+    h1h2("F=300,bins=12x25", s["mean"], proj3, b12p, b12c, bank_3)
+    del s["raw_parent"], proj3, bank_3
     ovr = (s["basis_p"], s["basis_c"], s["target_c"])
     h4_kw = dict(basis_p=s["basis_p"], basis_c=s["basis_c"],
                  target_c=s["target_c"], order="predict")
@@ -440,7 +458,7 @@ def phase_kernels(args, summary):
     b12p = torch.as_tensor(rng.integers(0, 12, N).astype(np.int32), device=dev)
     b12c = torch.as_tensor(rng.integers(0, 12, N).astype(np.int32), device=dev)
     bank_3 = _wide_bank(fc3, b12c, 12, 25, 10, rng)
-    h4_ms["F=300"] = h4("F=300,bins=12x25", fp3, fc3, b12p, b12c, bank_3, False)
+    h4_ms["F=300"] = h4("F=300,bins=12x25", fp3, fc3, b12p, b12c, bank_3, True)
     del fp3, fc3, bank_3
     (ms_a, dev_a), (ms_b, dev_b) = h4_ms["K=250"], h4_ms["K=3200"]
     emit(dict(phase="kernels", setup_s=setup_s, reps=reps,

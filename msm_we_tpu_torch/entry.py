@@ -118,10 +118,10 @@ def hot_step(problem, tier="two_transform", device="cuda"):
 
     ``two_transform`` (bench tier ``two_transform``): parent and child raw
     rows through one H2 launch (transform, assign, flux-order overrides,
-    f32 flux). ``dedup``: one H1 launch transforms the extended raw array
-    once and emits its features; parent features are a gather of them
-    (WE continuity) and one H3 launch assigns both sets and scatters the
-    flux. Either way the steady state follows.
+    f32 flux). ``dedup``: one features-only H1 launch transforms the
+    extended raw array once and emits its features (no scoring); parent
+    features are a gather of them (WE continuity) and one H3 launch
+    assigns both sets and scatters the flux. Any feature width. Either way the steady state follows.
 
     Returns a dict with ``fm``, ``pss``, ``flux``, ``residual``, ``pidx``
     and ``cidx`` (device tensors; nothing is synchronised).
@@ -138,9 +138,9 @@ def hot_step(problem, tier="two_transform", device="cuda"):
             *bank, S,
         )
     else:
-        _ids, g = transform_assign_child(
+        _none, g = transform_assign_child(
             s["raw_ext"], s["bins_ext"], None, None, s["mean"], s["comp"],
-            *bank, S, emit_features=True,
+            *bank, S, features_only=True,
         )
         feats = g - s["mean"] @ s["comp"]
         n = len(s["pbins"])

@@ -25,13 +25,14 @@ kernels are deliberate, so that the kernels serve production:
 The bank must be compact (valid centers first, in global-id order), so the
 row index of the winning center is its global cluster id.
 
-H1-H3 hold a row's features in registers, at most ``MAX_FEATURES``; wider
-rows raise ``NotImplementedError`` on CUDA. H4 takes any width: its
-wrapper groups the rows by bin first (``_bin_tiles``: small plan kernels
-and one stable ``torch.sort`` on the device, with no host
-synchronisation; ``_bin_tiles_plain`` is its plain version) and the
-kernel streams features and the bin's centers through shared memory, one
-tile of one bin a block.
+Every kernel takes any feature width. H1-H3 keep a block's feature rows
+(transformed from the raw rows for H1/H2, loaded for H3) in a shared
+memory tile and stream the bank past it; H1/H2 stream the raw rows and P
+through shared memory into a register tile of rows x features. H4 groups
+the rows by bin first (``_bin_tiles``: small plan kernels and one stable
+``torch.sort`` on the device, with no host synchronisation;
+``_bin_tiles_plain`` is its plain version) and the kernel streams features
+and the bin's centers through shared memory, one tile of one bin a block.
 
 A wrapper given CPU tensors runs the ``*_plain`` version beside it (dense
 masked scores, ``argmin``, ``_apply_overrides``, ``index_add_``). Given CUDA
@@ -61,7 +62,6 @@ __all__ = [
     "reset_launch_counts",
 ]
 
-MAX_FEATURES = 128  # register-resident feature rows in the H1-H3 kernel
 TILE_ROWS = 64  # rows per H4 tile (kTileRows in csrc/pair_assign.cu)
 _NO_BIN = 2**40  # sort key of an invalid center: no row bin reaches it
 _ORDERS = {None: 0, "flux": 1, "predict": 2}
@@ -101,10 +101,13 @@ def _flux(pidx, cidx, w, n_states):
 
 def transform_assign_child_plain(raw, bins, basis, target, mean, proj,
                                  centers, center_bin, valid, n_states,
-                                 emit_features=False):
+                                 emit_features=False, features_only=False):
     """Plain H1: ``g = raw P``, masked nearest center on ``c2adj - 2 g.C``,
-    target then basis override (basis wins). Returns ``(idx, g or None)``."""
+    target then basis override (basis wins). Returns ``(idx, g or None)``;
+    with ``features_only``, ``(None, g)``."""
     g = raw @ proj
+    if features_only:
+        return None, g
     idx = _argmin(g, bins, centers, center_bin, valid,
                   c2=c2adj(mean, proj, centers))
     if target is not None:
@@ -228,14 +231,6 @@ def _check_rows(n):
         raise ValueError(f"{n} rows exceed the kernel's 32-bit row index")
 
 
-def _check_sizes(n, F):
-    if F > MAX_FEATURES:
-        raise NotImplementedError(
-            f"the CUDA kernel holds at most {MAX_FEATURES} features per row, got {F}"
-        )
-    _check_rows(n)
-
-
 def _bin_tiles_plain(pbins, cbins, center_bin, valid, tile_rows=TILE_ROWS):
     """The H4 launch plan in plain torch: rows grouped by bin, in tiles of
     one bin.
@@ -338,16 +333,20 @@ def _check_states(n_states):
 
 
 def transform_assign_child(raw, bins, basis, target, mean, proj, centers,
-                           center_bin, valid, n_states, emit_features=False):
+                           center_bin, valid, n_states, emit_features=False,
+                           features_only=False):
     """H1 (``fused_transform_assign_child``): child rows only. ``raw`` (N, D)
     f32 -> ``g = raw P`` -> masked nearest center on ``c2adj - 2 g.C`` ->
     target then basis override. Returns ``(idx int32 (N,), g (N, F) or
     None)``; ``g`` excludes the centering (``g - mean P`` are the features).
+    ``features_only``: the same kernel emits ``g`` and skips the scoring;
+    returns ``(None, g)``.
     """
     if not _on_cuda(raw, "raw"):
         return transform_assign_child_plain(
             raw, bins, basis, target, mean, proj, centers, center_bin, valid,
             n_states, emit_features=emit_features,
+            features_only=features_only,
         )
     dev = raw.device
     N, D = raw.shape
@@ -359,13 +358,15 @@ def transform_assign_child(raw, bins, basis, target, mean, proj, centers,
     _rows(N, dev, [("bins", bins)], torch.int32)
     _rows(N, dev, [("basis", basis), ("target", target)], torch.bool,
           optional=("basis", "target"))
-    _check_sizes(N, F)
+    _check_rows(N)
     _check_states(n_states)
-    idx = torch.empty(N, dtype=torch.int32, device=dev)
-    feats = torch.empty((N, F), dtype=torch.float32, device=dev) if emit_features else None
+    idx = None if features_only else torch.empty(N, dtype=torch.int32, device=dev)
+    feats = (torch.empty((N, F), dtype=torch.float32, device=dev)
+             if emit_features or features_only else None)
     if N == 0:
         return idx, feats
-    a = c2adj(mean, proj, centers).contiguous()
+    # The scores' c2adj; a features-only launch reads no bank
+    a = None if features_only else c2adj(mean, proj, centers).contiguous()
     with torch.cuda.device(dev):  # launch in the tensors' device context
         err = library().msm_transform_assign_child(
             _ptr(raw), _ptr(bins), _ptr(basis), _ptr(target), _ptr(proj),
@@ -409,7 +410,7 @@ def transform_assign(raw_p, raw_c, pbins, cbins, w, basis_p, basis_c,
             raise TypeError("w must be a float32 or float64 tensor")
         _check(w, "w", w.dtype, (N,), dev)
         fm = torch.zeros((n_states, n_states), dtype=w.dtype, device=dev)
-    _check_sizes(N, F)
+    _check_rows(N)
     _check_states(n_states)
     pidx = torch.empty(N, dtype=torch.int32, device=dev)
     cidx = torch.empty(N, dtype=torch.int32, device=dev)
@@ -452,7 +453,7 @@ def assign_flux(fp, fc, pbins, cbins, w, basis_p, basis_c, target_c,
     if w is None or w.dtype not in (torch.float32, torch.float64):
         raise TypeError("w must be a float32 or float64 tensor")
     _check(w, "w", w.dtype, (N,), dev)
-    _check_sizes(N, F)
+    _check_rows(N)
     _check_states(n_states)
     pidx = torch.empty(N, dtype=torch.int32, device=dev)
     cidx = torch.empty(N, dtype=torch.int32, device=dev)

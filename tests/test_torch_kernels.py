@@ -367,8 +367,15 @@ def test_kernel_checks_refuse_wrong_dtype_layout_and_device():
     meta = torch.zeros((4, 3), device="meta")
     with pytest.raises(ValueError):
         sa.pair_assign(None, meta, None, meta, meta, meta, meta)
-    with pytest.raises(NotImplementedError):
-        sa._check_sizes(10, sa.MAX_FEATURES + 1)
+    # Any feature width passes: the kernels hold no row in registers
+    assert not hasattr(sa, "MAX_FEATURES")
+    wide = torch.zeros((4, 300), dtype=torch.float32)
+    assert sa._check_bank(wide, torch.zeros(4, dtype=torch.int32),
+                          torch.ones(4, dtype=torch.bool), 300, cpu) == 4
+    sa._check(wide, "fc", torch.float32, (4, 300), cpu)
+    sa._check_rows(4)
+    with pytest.raises(ValueError):
+        sa._check_rows(2**31)
     with pytest.raises(ValueError):
         sa.pair_assign(None, x, None, torch.zeros(4, dtype=torch.int32), x,
                        torch.zeros(4, dtype=torch.int32),

@@ -210,8 +210,7 @@ def cuda_device():
                                     ("bins128", 30), ("holey", 300)])
 def test_cuda_kernel_matches_plain_and_h3(case, F, cuda_device):
     """The kernel against ``pair_assign_plain`` (ids up to near-ties,
-    overrides exactly) and against H3's raw ids bitwise (H3 holds at most
-    128 features)."""
+    overrides exactly) and against H3's raw ids bitwise."""
     p = _bank_case(case, seed=F, d=F, N=5000)
     t = to_torch(p, cuda_device)
     args = (t["fp"], t["fc"], t["pbins"], t["cbins"], t["centers"],
@@ -239,10 +238,9 @@ def test_cuda_kernel_matches_plain_and_h3(case, F, cuda_device):
             assert torch.equal(over, b[side] >= K)
             assert torch.equal(a[side][over], b[side][over])
             assert torch.equal(a[side][~over], got[side][~over])
-    if F <= sa.MAX_FEATURES:
-        none = torch.zeros(N, dtype=torch.bool, device=cuda_device)
-        w = torch.ones(N, dtype=torch.float64, device=cuda_device)
-        hp, hc, _fm = sa.assign_flux(t["fp"], t["fc"], t["pbins"], t["cbins"],
-                                     w, none, none, none, t["centers"],
-                                     t["center_bin"], t["valid"], K + 2)
-        assert torch.equal(hp, got[0]) and torch.equal(hc, got[1])
+    none = torch.zeros(N, dtype=torch.bool, device=cuda_device)
+    w = torch.ones(N, dtype=torch.float64, device=cuda_device)
+    hp, hc, _fm = sa.assign_flux(t["fp"], t["fc"], t["pbins"], t["cbins"],
+                                 w, none, none, none, t["centers"],
+                                 t["center_bin"], t["valid"], K + 2)
+    assert torch.equal(hp, got[0]) and torch.equal(hc, got[1])
