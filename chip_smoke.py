@@ -11,13 +11,16 @@ Phases, each printing one JSON line:
    device tensors at the main path's shapes (``make_problem()``: 102,400
    segments, raw 900 -> 30 features, 250 centers). Every kernel also at
    3,200 centers over 128 bins and at 300 features over 12 bins x 25 (H1/H2:
-   raw 900 -> 300 with a seeded P), H4 also on one bin of 300 centers
+   raw 900 -> 300 with a seeded P), H3/H4 also on one bin of 300 centers
    (aggregated clustering). Ids must agree except at near-ties, H1's
-   features to 1e-4 relative, dyadic f64 flux bitwise, and H4's ids must
-   equal H3's raw ids bitwise. Median times of kernel, plain version and the dense
+   features to 1e-4 relative, dyadic f64 flux bitwise, H4's ids must
+   equal H3's raw ids bitwise, and the plan kernels of H3/H4 their plain
+   plans. Median times of kernel, plain version and the dense
    ``torch.mm`` each kernel cannot avoid (``mm_ms``) from CUDA events;
+   device times of the kernel and its plan kernels from ``torch.profiler``;
    ``bound_ms`` is the least time the card could take (bytes over 3.35
-   TB/s or FLOPs over 67 TFLOP/s f32, whichever is larger).
+   TB/s or FLOPs over 67 TFLOP/s f32, whichever is larger). H3's lines
+   also give the FLOPs it issues beside the same-bin FLOPs.
 4. ``main``: the main path with every launch count reset first --
    ``hot_step`` in both tiers and ``entry()`` at full size, then the haMSM
    build (``modelWE.build_analyze_model``) on a 101 x 1,000 synthetic WE
@@ -75,7 +78,7 @@ KERNEL_INFO = {
         source="msm_we_tpu_torch/csrc/stratified_assign.cu"),
     "assign_flux": dict(
         pallas="H3", replaces="msm_we_tpu/ops/pallas_kernels.py:248",
-        source="msm_we_tpu_torch/csrc/stratified_assign.cu"),
+        source="msm_we_tpu_torch/csrc/assign_flux.cu"),
     "pair_assign": dict(
         pallas="H4", replaces="msm_we_tpu/ops/pallas_kernels.py:203",
         source="msm_we_tpu_torch/csrc/pair_assign.cu"),
@@ -214,6 +217,37 @@ def _same_bin_pairs(bins, bank):
     n_bins = int(max(int(cb.max()), int(b.max()))) + 1
     per_bin = torch.bincount(cb, minlength=n_bins)
     return int(torch.where(b >= 0, per_bin[b.clamp(min=0)], 0).sum())
+
+
+def _h3_flops(pbins, cbins, bank, F):
+    """(FLOPs H3 issues, same-bin FLOPs) at these inputs, as
+    ``csrc/assign_flux.cu`` cuts the work: each block's run of one bin
+    into tasks of ``TASK_ROWS`` rows; a task of more than 16 rows scores 32
+    row slots against 32 center slots per 32-center chunk; a shorter one
+    R = max(4, next power of two) row slots against its chunk's centers in
+    passes of 16 (R = 8) or 32 center slots."""
+    import torch
+
+    from msm_we_tpu_torch.ops import stratified_assign as sa
+
+    _cperm, ckey, rkey = sa._plan_keys(pbins, cbins, bank[1], bank[2])
+    dev, N, K = ckey.device, cbins.shape[0], ckey.shape[0]
+    block = (torch.arange(N, device=dev) // sa.SEGMENTS_PER_BLOCK).repeat(2)
+    g = rkey.long()
+    live = g < K
+    runs, rows = torch.unique(block[live] * (K + 1) + g[live], return_counts=True)
+    ncent = torch.searchsorted(ckey, ckey, right=True) - torch.arange(K, device=dev)
+    nc = ncent[runs % (K + 1)]
+    full, rem = rows // sa.TASK_ROWS, rows % sa.TASK_ROWS
+    long_rows = full * 32 + torch.where(rem > 16, 32, 0)
+    long_slots = 32 * ((nc + 31) // 32)
+    short = (rem > 0) & (rem <= 16)
+    R = torch.where(rem <= 4, 4, torch.exp2(torch.ceil(torch.log2(
+        rem.clamp(min=1).double()))).long())
+    cc = torch.where(R == 8, 16, 32)
+    short_slots = (nc // 32) * 32 + (nc % 32 + cc - 1) // cc * cc
+    issued = long_rows * long_slots + torch.where(short, R * short_slots, 0)
+    return 2 * F * int(issued.sum()), 2 * F * int((rows * nc).sum())
 
 
 def _wide_bank(fc, bins_c, n_bins, k, seed, rng):
@@ -408,12 +442,22 @@ def phase_kernels(args, summary):
             pms = cuda_ms(lambda: sa.assign_flux_plain(X_p, X_c, pb, cb, s["w"],
                                                        *ovr, *bk, SS), reps)
             dms = device_ms(lambda: sa.assign_flux(X_p, X_c, pb, cb, s["w"], *ovr,
-                                                   *bk, SS), "stratified_assign_kernel", reps)
+                                                   *bk, SS), "assign_flux_kernel", reps)
+            plan3 = device_ms(lambda: sa.assign_flux(X_p, X_c, pb, cb, s["w"], *ovr,
+                                                     *bk, SS), "plan_", reps)
+            keys = sa._plan_keys(pb, cb, bk[1], bk[2])
+            require(all(torch.equal(a, b) for a, b in
+                        zip(keys, sa._plan_keys_plain(pb, cb, bk[1], bk[2]))),
+                    f"H3 [{regime}] plan kernels differ from the plain plan")
+            del keys
+            issued, same_bin = _h3_flops(pb, cb, bk, Fx)
             fm32 = torch.empty((SS, SS), dtype=torch.float32, device=dev)
             bound = _bound([X_p, X_c, pb, cb, s["w"], *ovr, *bk, pk, ck, fm32],
                            2 * pairs * Fx)
             record("assign_flux", regime, ms, pms, err, m1 + m2, t1 + t2, bound,
-                   mm, flux_ok, K=bk[0].shape[0], kernel_ms=dms)
+                   mm, flux_ok, K=bk[0].shape[0], F=int(Fx), kernel_ms=dms,
+                   plan_kernels_ms=plan3, flops_issued=issued,
+                   flops_same_bin=same_bin)
             extra["h3_raw_ids_bitwise"] = True
 
         # H4 with the predict-order epilogue, as the build discretizes:
@@ -449,7 +493,7 @@ def phase_kernels(args, summary):
     # Aggregated clustering's shape: every row in one bin of 300 centers
     zeros = torch.zeros(N, dtype=torch.int32, device=dev)
     bank_1 = _wide_bank(fc, zeros, 1, 300, 8, rng)
-    h4_ms["one_bin"] = h4("one_bin,K=300", fp, fc, zeros, zeros, bank_1, False)
+    h4_ms["one_bin"] = h4("one_bin,K=300", fp, fc, zeros, zeros, bank_1, True)
     del bank_1
     # 300 features (batch PCA at 100 atoms keeps all): 12 bins x 25
     gen = torch.Generator(dev).manual_seed(9)

@@ -22,7 +22,7 @@
 // range of that bin's centers. A tile with no centers holds rows whose bin
 // has no valid center: they get id 0. So
 //  * a block scores its rows against its bin's centers only: the work is
-//    O(rows x centers per bin), not O(rows x K) as in the kernel family of
+//    O(rows x centers per bin), not O(rows x K) as in H1/H2 of
 //    stratified_assign.cu, where every block scans the whole bank;
 //  * every warp's rows share a bin, so no lane idles on another bin's
 //    centers;
@@ -31,13 +31,13 @@
 //    padding to 32/64/128. Each thread keeps a 4 x 4 register tile of
 //    (row, center) dot products across the chunks, fed by one float4 of
 //    rows and one of centers per feature.
-// Scores are bitwise those of stratified_assign.cu: one fmaf chain per
-// (row, center) over f = 0..F-1 ascending from 0.f, carried across chunks,
-// then __fsub_rn(c2, __fmul_rn(2.f, dot)) with the wrapper's c2. The
-// (score, id) minimum is lexicographic within a thread and across the 8
-// threads that share a row (warp shuffles), so ties go to the lower
-// original center id, as in the upward scan of the other family. No
-// atomics and no timing-dependent order: results repeat bitwise.
+// Scores are bitwise those of stratified_assign.cu and assign_flux.cu: one
+// fmaf chain per (row, center) over f = 0..F-1 ascending from 0.f, carried
+// across chunks, then __fsub_rn(c2, __fmul_rn(2.f, dot)) with the wrapper's
+// c2. The (score, id) minimum is lexicographic within a thread and across
+// the 8 threads that share a row (warp shuffles), so ties go to the lower
+// original center id. No atomics and no timing-dependent order: results
+// repeat bitwise.
 // Exact f32 only: no TF32, no tensor cores.
 //
 // The grid is an upper bound on the tiles; blocks past the last tile exit.
@@ -47,6 +47,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <cmath>
+
+#include "assign_common.cuh"
 
 namespace {
 
@@ -63,26 +65,6 @@ static_assert(kCenterGroups == 8, "the shuffle reduction spans 8 lanes");
 static_assert(kFeatChunk == 32, "rows and centers are staged a feature a lane");
 static_assert(kRowsPerThread == 4 && kCentersPerThread == 4, "float4 reads");
 
-enum Overrides { kNone = 0, kFluxOrder = 1, kPredictOrder = 2 };
-
-struct Sides {
-  const float* x[2];         // (n_side, F) parent, child features
-  const uint8_t* basis[2];   // (n_side,) or null
-  const uint8_t* target[2];  // (n_side,) or null
-  int32_t* idx[2];           // (n_side,) output ids
-};
-
-// (s, k) lies below (bs, bk) in (score, id) order; bk < 0: nothing yet
-// (bs is then +inf, so inf and NaN scores are never taken, as in the
-// strict-< scan of the other family)
-__device__ __forceinline__ bool better(float s, int k, float bs, int bk) {
-  return s < bs || (bk >= 0 && s == bs && k < bk);
-}
-
-__device__ __forceinline__ bool flag(const uint8_t* m, int row) {
-  return m != nullptr && m[row] != 0;
-}
-
 // ------------------------------------------------------------------ plan
 // The launch plan of ``_bin_tiles_plain`` (ops/stratified_assign.py) on the
 // device, equal to it element for element: centers sorted stably by bin
@@ -97,18 +79,6 @@ constexpr int kScanThreads = 1024;
 __device__ __forceinline__ long long center_key(const int32_t* cbin,
                                                 const uint8_t* valid, int i) {
   return valid[i] ? static_cast<long long>(cbin[i]) : kNoBin;
-}
-
-// First index of a sorted array whose value is >= v (lower) or > v (upper)
-template <bool UPPER, typename T, typename V>
-__device__ int search(const T* a, int n, V v) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (UPPER ? !(v < a[mid]) : a[mid] < v) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
 }
 
 // Stable sort of the center keys by counting each key's rank
@@ -358,8 +328,9 @@ pair_assign_kernel(Sides sides, int n_parent, const long long* __restrict__ orde
 
 extern "C" {
 
-// The H4 plan, first half: cperm/ckey (K) and each row's group rkey (R,
-// parent rows then child rows; pbins null: the child set alone).
+// The H4 plan, first half, and all of H3's: cperm/ckey (K) and each row's
+// group rkey (R, parent rows then child rows; pbins null: the child set
+// alone).
 int msm_pair_plan_keys(const int32_t* pbins, const int32_t* cbins, int n,
                        const int32_t* cbin, const uint8_t* valid, int K,
                        int32_t* cperm, long long* ckey, int32_t* rkey,

@@ -1,32 +1,30 @@
-// Stratified nearest-center assignment for Hopper (sm_90a): the hand-written
-// CUDA family that replaces three of the four Pallas TPU kernels of
-// msm_we_tpu/ops/pallas_kernels.py.
+// Stratified nearest-center assignment from raw rows for Hopper (sm_90a):
+// the hand-written CUDA family that replaces two of the four Pallas TPU
+// kernels of msm_we_tpu/ops/pallas_kernels.py.
 //
 //   msm_transform_assign_child  <- _transform_assign_child_kernel :473 (H1)
 //   msm_transform_assign        <- _transform_assign_kernel       :271 (H2)
-//   msm_assign_flux             <- _kernel                        :71  (H3)
 //
-// H4 (_assign_kernel, msm_pair_assign) has its own bin-grouped kernel in
-// pair_assign.cu, which scores bitwise as this family does.
+// H3 (_kernel, msm_assign_flux) and H4 (_assign_kernel, msm_pair_assign)
+// take feature rows and have their own bin-grouped kernels in
+// assign_flux.cu and pair_assign.cu, which score bitwise as this family
+// does.
 //
-// What it computes, per row (a WE segment's parent or child frame): for
-// H1/H2 the features g = x P of the raw row, for H3 the feature row as
-// given; the first minimum of c2 - 2 g.c over the valid centers of the
-// row's WE bin (c2 = |c|^2; the transform entry points fold the PCA
-// centering into c2adj = |c|^2 + 2 (mu P).c); the basis/target overrides in
-// flux order (basis wins); and, for two row sets, the segment weight
-// scattered into the (S, S) flux matrix. H1 can also emit g, or emit g
-// alone (idx null: no scoring, no ids).
+// What it computes, per row (a WE segment's parent or child frame): the
+// features g = x P of the raw row; the first minimum of c2 - 2 g.c over
+// the valid centers of the row's WE bin (c2 = |c|^2; the entry points fold
+// the PCA centering into c2adj = |c|^2 + 2 (mu P).c); the basis/target
+// overrides in flux order (basis wins); and, for two row sets, the segment
+// weight scattered into the (S, S) flux matrix. H1 can also emit g, or
+// emit g alone (idx null: no scoring, no ids).
 //
 // What bounds it on an H100 (3.35 TB/s, 67 TFLOP/s f32 outside the tensor
 // cores), at 102,400 rows a set, raw 900 -> F features, K = 250:
-//  * H1/H2 at F = 30: bytes. The raw rows are 369 MB a set (737 MB for
-//    H2's two sets), 0.110 / 0.221 ms; the transform's 4 N D F = 5.5 / 11.1
-//    GFLOP take 0.083 / 0.165 ms, close behind.
-//  * H1/H2 at F = 300: operations, 55 / 111 GFLOP of transform, 0.83 /
-//    1.65 ms, against the same bytes.
-//  * H3: operations of the whole-bank scan (2 N K F a set). Its O(N K)
-//    scan stays; H4's bin grouping is the next step for it.
+//  * at F = 30: bytes. The raw rows are 369 MB a set (737 MB for H2's two
+//    sets), 0.110 / 0.221 ms; the transform's 4 N D F = 5.5 / 11.1 GFLOP
+//    take 0.083 / 0.165 ms, close behind.
+//  * at F = 300: operations, 55 / 111 GFLOP of transform, 0.83 / 1.65 ms,
+//    against the same bytes.
 //
 // Design. A block owns a tile of BM rows (BM = 128, or 64/32/16 where a
 // wide F would not fit 130 KB of shared memory): BM rows of one set, or,
@@ -50,10 +48,10 @@
 //    FMAs and every raw value 4. The ragged D and N edges are zero-filled.
 //  * The finished g tile (BM x F, padded to a multiple of 32 plus 4
 //    columns against bank conflicts) stays in shared memory: it is emitted
-//    from there, and scoring reads it. H3 loads its feature rows into the
-//    same tile. No row has to fit in registers, so any F works as long as
-//    a 16-row tile and one 32-center bank tile fit in shared memory (F up
-//    to about 1,100); wider rows are refused with cudaErrorInvalidValue.
+//    from there, and scoring reads it. No row has to fit in registers, so
+//    any F works as long as a 16-row tile and one 32-center bank tile fit
+//    in shared memory (F up to about 1,100); wider rows are refused with
+//    cudaErrorInvalidValue.
 //  * Scoring streams the bank through shared memory in tiles of up to KS
 //    centers at full width and scores the g tile against each 32-center
 //    sub-tile as a small product: each thread holds a register tile of
@@ -66,9 +64,8 @@
 //  * Exact f32: plain fmaf, no TF32, no tensor cores. Each (row, feature)
 //    of g is one fmaf chain from 0.f over d ascending, and each (row,
 //    center) dot one chain from 0.f over f ascending (zero pads add exact
-//    zeros), whatever the tiling: so the results do not depend on BM, and
-//    H3's ids equal those of pair_assign.cu, which sums the same chains,
-//    bitwise. Scores are __fsub_rn(c2, __fmul_rn(2, dot)); ties go to the
+//    zeros), whatever the tiling: so the results do not depend on BM.
+//    Scores are __fsub_rn(c2, __fmul_rn(2, dot)); ties go to the
 //    lower center index (strict < upward, lexicographic across threads).
 //  * The flux epilogue is one atomicAdd per row with nonzero weight into
 //    the (S, S) matrix, f64 natively on sm_90 (or f32, following the dtype
@@ -87,6 +84,8 @@
 #include <climits>
 #include <cmath>
 
+#include "assign_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -100,10 +99,8 @@ constexpr int kColGroups = kFeatTile / 4;        // 8 threads along features
 constexpr int kRowGroups = kThreads / kColGroups;  // 16 along rows
 constexpr size_t kTileBytes = 130 * 1024;  // preferred shared memory of a block
 
-enum Overrides { kNone = 0, kFluxOrder = 1, kPredictOrder = 2 };
-
 struct RowSet {
-  const float* x;          // (n, F) features, or (n, D) raw when transforming
+  const float* x;          // (n, D) raw rows
   const int32_t* bin;      // (n,) remapped WE bin; -1 matches no center
   const uint8_t* basis;    // (n,) or null
   const uint8_t* target;   // (n,) or null
@@ -146,27 +143,6 @@ __device__ __forceinline__ int tile_row(const Tile& t, int r, int& row) {
 }
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // One pipeline stage: the tile's raw rows x columns d0..d0+kDepth-1 and P
 // rows d0.. x feature columns f0..f0+kFeatTile-1; out of range reads
@@ -275,25 +251,6 @@ __device__ void transform_tile(const Tile& t, const float* __restrict__ proj,
           make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
   }
   __syncthreads();  // the g tile is complete
-}
-
-// g tile = the tile's feature rows (zeros past n and past F). Every thread
-// of the block must call this (it synchronises).
-template <int BM>
-__device__ void load_tile(const Tile& t, const Dims& dm, float* gs) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  for (int r = warp; r < BM; r += kThreads / 32) {
-    int row;
-    const float* x = tile_row(t, r, row) ? t.x1 : t.x0;
-    for (int f = lane; f < dm.Fp; f += 32)
-      gs[r * dm.GS + f] = (row < dm.n && f < dm.F) ? x[size_t(row) * dm.F + f] : 0.f;
-  }
-  __syncthreads();
-}
-
-// (s, k) lies below (bs, bk) in (score, id) order; bk < 0: nothing yet
-__device__ __forceinline__ bool better(float s, int k, float bs, int bk) {
-  return s < bs || (bk >= 0 && s == bs && k < bk);
 }
 
 // First minimum of c2 - 2 g.c over the valid centers of each row's bin for
@@ -414,13 +371,9 @@ __device__ void score_rows(const float* gs, const Dims& dm, const Tile& t,
   __syncthreads();
 }
 
-__device__ __forceinline__ bool flag(const uint8_t* m, int row) {
-  return m != nullptr && m[row] != 0;
-}
-
 // parent.x == null: one row set (the `child` slot), no parent, no flux.
 // child.idx == null: features only (no scoring).
-template <int BM, bool TRANSFORM, typename WT>
+template <int BM, typename WT>
 __global__ void __launch_bounds__(kThreads, 3)
 stratified_assign_kernel(RowSet parent, RowSet child, const float* proj,
                          Bank bank, const WT* w, WT* fm, Dims dm, int n_states,
@@ -438,10 +391,7 @@ stratified_assign_kernel(RowSet parent, RowSet child, const float* proj,
   t.x1 = child.x;
   t.bin0 = pair ? parent.bin : child.bin;
   t.bin1 = child.bin;
-  if (TRANSFORM)
-    transform_tile<BM>(t, proj, dm, gs, us);
-  else
-    load_tile<BM>(t, dm, gs);
+  transform_tile<BM>(t, proj, dm, gs, us);
   if (child.feats != nullptr) {  // one set: the block's rows are contiguous
     const int rows = min(BM, dm.n - t.row0);
     float* out = child.feats + size_t(t.row0) * dm.F;
@@ -482,10 +432,10 @@ stratified_assign_kernel(RowSet parent, RowSet child, const float* proj,
 // Dynamic shared memory of a BM-row tile: the g tile, then the larger of
 // the transform stages and the least bank tile. Sets dm.KS to the centers
 // that region holds (at most K rounded up to a sub-tile).
-size_t tile_bytes(int BM, bool transform, int K, Dims& dm) {
+size_t tile_bytes(int BM, int K, Dims& dm) {
   const size_t g = size_t(BM) * dm.GS * sizeof(float);
   const size_t stages =
-      transform ? size_t(kStages) * (BM * kRowStride + kDepth * kFeatTile) * sizeof(float) : 0;
+      size_t(kStages) * (BM * kRowStride + kDepth * kFeatTile) * sizeof(float);
   const size_t per_center = size_t(dm.Fp + 4) * sizeof(float) + sizeof(float) + sizeof(int);
   size_t u = stages > size_t(kBankTileBytes) ? stages : size_t(kBankTileBytes);
   if (u < kCenterTile * per_center) u = kCenterTile * per_center;
@@ -495,12 +445,12 @@ size_t tile_bytes(int BM, bool transform, int K, Dims& dm) {
   return g + u;
 }
 
-template <int BM, bool TRANSFORM, typename WT>
+template <int BM, typename WT>
 cudaError_t launch_bm(const RowSet& parent, const RowSet& child,
                       const float* proj, const Bank& bank, const WT* w, WT* fm,
                       const Dims& dm, size_t smem, int n_states, int overrides,
                       cudaStream_t stream) {
-  auto kernel = stratified_assign_kernel<BM, TRANSFORM, WT>;
+  auto kernel = stratified_assign_kernel<BM, WT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
@@ -511,11 +461,11 @@ cudaError_t launch_bm(const RowSet& parent, const RowSet& child,
   return cudaGetLastError();
 }
 
-template <bool TRANSFORM, typename WT>
+template <typename WT>
 int launch(const RowSet& parent, const RowSet& child, const float* proj,
            const Bank& bank, const WT* w, WT* fm, int n, int D, int F,
            int n_states, int overrides, void* stream) {
-  if (n <= 0 || bank.K <= 0 || F <= 0 || (TRANSFORM && D <= 0))
+  if (n <= 0 || bank.K <= 0 || F <= 0 || D <= 0)
     return int(cudaErrorInvalidValue);
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -539,7 +489,7 @@ int launch(const RowSet& parent, const RowSet& child, const float* proj,
   for (int pass = 0; pass < 2 && bm == 0; ++pass) {
     for (int b : bms) {
       Dims t = dm;
-      const size_t bytes = tile_bytes(b, TRANSFORM, bank.K, t);
+      const size_t bytes = tile_bytes(b, bank.K, t);
       if (bytes <= (pass == 0 ? kTileBytes : limit)) {
         bm = b;
         smem = bytes;
@@ -551,16 +501,16 @@ int launch(const RowSet& parent, const RowSet& child, const float* proj,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (bm) {
     case 128:
-      err = launch_bm<128, TRANSFORM, WT>(parent, child, proj, bank, w, fm, dm, smem, n_states, overrides, st);
+      err = launch_bm<128, WT>(parent, child, proj, bank, w, fm, dm, smem, n_states, overrides, st);
       break;
     case 64:
-      err = launch_bm<64, TRANSFORM, WT>(parent, child, proj, bank, w, fm, dm, smem, n_states, overrides, st);
+      err = launch_bm<64, WT>(parent, child, proj, bank, w, fm, dm, smem, n_states, overrides, st);
       break;
     case 32:
-      err = launch_bm<32, TRANSFORM, WT>(parent, child, proj, bank, w, fm, dm, smem, n_states, overrides, st);
+      err = launch_bm<32, WT>(parent, child, proj, bank, w, fm, dm, smem, n_states, overrides, st);
       break;
     case 16:
-      err = launch_bm<16, TRANSFORM, WT>(parent, child, proj, bank, w, fm, dm, smem, n_states, overrides, st);
+      err = launch_bm<16, WT>(parent, child, proj, bank, w, fm, dm, smem, n_states, overrides, st);
       break;
     default:  // not even a 16-row tile fits: rows too wide
       err = cudaErrorInvalidValue;
@@ -609,10 +559,10 @@ int msm_transform_assign_child(const float* raw, const int32_t* bins,
   const RowSet none = make_rows(nullptr, nullptr, nullptr, nullptr, nullptr,
                                 nullptr);
   const RowSet child = make_rows(raw, bins, basis, target, idx, feats);
-  return launch<true, float>(none, child, proj,
-                             make_bank(centers, c2adj, cbin, valid, K),
-                             nullptr, nullptr, n, D, F, n_states,
-                             (basis || target) ? kFluxOrder : kNone, stream);
+  return launch<float>(none, child, proj,
+                       make_bank(centers, c2adj, cbin, valid, K),
+                       nullptr, nullptr, n, D, F, n_states,
+                       (basis || target) ? kFluxOrder : kNone, stream);
 }
 
 // H2: parent and child rows, transform, flux-order overrides (target_p may
@@ -632,38 +582,14 @@ int msm_transform_assign(const float* raw_p, const float* raw_c,
                                  nullptr);
   const Bank bank = make_bank(centers, c2adj, cbin, valid, K);
   if (w_is_f64)
-    return launch<true, double>(parent, child, proj, bank,
-                                static_cast<const double*>(w),
-                                static_cast<double*>(fm), n, D, F, n_states,
-                                kFluxOrder, stream);
-  return launch<true, float>(parent, child, proj, bank,
-                             static_cast<const float*>(w),
-                             static_cast<float*>(fm), n, D, F, n_states,
-                             kFluxOrder, stream);
-}
-
-// H3: features in; parent and child assignment, flux-order overrides
-// (target_p may be null) and the (S, S) flux of w (f32 or f64).
-int msm_assign_flux(const float* fp, const float* fc, const int32_t* pbins,
-                    const int32_t* cbins, const uint8_t* basis_p,
-                    const uint8_t* basis_c, const uint8_t* target_p,
-                    const uint8_t* target_c, const void* w, int w_is_f64,
-                    const float* centers, const float* c2,
-                    const int32_t* cbin, const uint8_t* valid, int n, int F,
-                    int K, int n_states, int32_t* pidx, int32_t* cidx,
-                    void* fm, void* stream) {
-  const RowSet parent = make_rows(fp, pbins, basis_p, target_p, pidx, nullptr);
-  const RowSet child = make_rows(fc, cbins, basis_c, target_c, cidx, nullptr);
-  const Bank bank = make_bank(centers, c2, cbin, valid, K);
-  if (w_is_f64)
-    return launch<false, double>(parent, child, nullptr, bank,
-                                 static_cast<const double*>(w),
-                                 static_cast<double*>(fm), n, 0, F, n_states,
-                                 kFluxOrder, stream);
-  return launch<false, float>(parent, child, nullptr, bank,
-                              static_cast<const float*>(w),
-                              static_cast<float*>(fm), n, 0, F, n_states,
-                              kFluxOrder, stream);
+    return launch<double>(parent, child, proj, bank,
+                          static_cast<const double*>(w),
+                          static_cast<double*>(fm), n, D, F, n_states,
+                          kFluxOrder, stream);
+  return launch<float>(parent, child, proj, bank,
+                       static_cast<const float*>(w),
+                       static_cast<float*>(fm), n, D, F, n_states,
+                       kFluxOrder, stream);
 }
 
 }  // extern "C"

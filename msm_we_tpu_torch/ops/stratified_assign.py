@@ -1,8 +1,9 @@
 """Fused stratified assignment kernels and their plain PyTorch versions.
 
 Counterpart of ``msm_we_tpu/ops/pallas_kernels.py``. Each wrapper is named
-for its Pallas kernel and launches one entry point on CUDA tensors: H1-H3
-of ``csrc/stratified_assign.cu``, H4 of ``csrc/pair_assign.cu``:
+for its Pallas kernel and launches its kernel on CUDA tensors: H1 and H2
+of ``csrc/stratified_assign.cu``, H3 of ``csrc/assign_flux.cu``, H4 of
+``csrc/pair_assign.cu``:
 
 ==========================  ==============================================
 ``transform_assign_child``  H1 ``fused_transform_assign_child``
@@ -25,14 +26,19 @@ kernels are deliberate, so that the kernels serve production:
 The bank must be compact (valid centers first, in global-id order), so the
 row index of the winning center is its global cluster id.
 
-Every kernel takes any feature width. H1-H3 keep a block's feature rows
-(transformed from the raw rows for H1/H2, loaded for H3) in a shared
-memory tile and stream the bank past it; H1/H2 stream the raw rows and P
-through shared memory into a register tile of rows x features. H4 groups
-the rows by bin first (``_bin_tiles``: small plan kernels and one stable
-``torch.sort`` on the device, with no host synchronisation;
-``_bin_tiles_plain`` is its plain version) and the kernel streams features
-and the bin's centers through shared memory, one tile of one bin a block.
+Every kernel takes any feature width. H1/H2 stream the raw rows and P
+through shared memory into a register tile of rows x features, keep a
+block's feature rows in a shared memory tile and stream the bank past it.
+H3 and H4 score a row against its own bin's centers only. Both start from
+the same plan kernels (``_plan_keys``: the bank sorted stably by bin and
+each row's group, with no host synchronisation; ``_plan_keys_plain`` is
+its plain version). H4 then groups the rows by bin across the launch
+(``_bin_tiles``: one stable ``torch.sort`` and a tile table;
+``_bin_tiles_plain``), one tile of one bin a block. H3 keeps the parent
+and child rows of ``SEGMENTS_PER_BLOCK`` segments in one block, so that
+each segment's two ids meet for the flux, and groups those rows by bin
+inside the block, a warp scoring up to ``TASK_ROWS`` rows of one bin at a
+time.
 
 A wrapper given CPU tensors runs the ``*_plain`` version beside it (dense
 masked scores, ``argmin``, ``_apply_overrides``, ``index_add_``). Given CUDA
@@ -63,6 +69,8 @@ __all__ = [
 ]
 
 TILE_ROWS = 64  # rows per H4 tile (kTileRows in csrc/pair_assign.cu)
+SEGMENTS_PER_BLOCK = 512  # segments per H3 block (kSegs in csrc/assign_flux.cu)
+TASK_ROWS = 32  # rows of one bin an H3 warp scores at once (kTaskRows)
 _NO_BIN = 2**40  # sort key of an invalid center: no row bin reaches it
 _ORDERS = {None: 0, "flux": 1, "predict": 2}
 
@@ -231,16 +239,58 @@ def _check_rows(n):
         raise ValueError(f"{n} rows exceed the kernel's 32-bit row index")
 
 
-def _bin_tiles_plain(pbins, cbins, center_bin, valid, tile_rows=TILE_ROWS):
-    """The H4 launch plan in plain torch: rows grouped by bin, in tiles of
-    one bin.
+def _plan_keys_plain(pbins, cbins, center_bin, valid):
+    """The first half of the H4 plan and all of H3's, in plain torch.
 
     The plan's rows are the parent rows (``pbins``; None: none), then the
     child rows (``cbins``). Valid centers are sorted stably by bin, invalid
     ones last (``cperm``: sorted position -> center id; the identity for a
-    compact bank ordered by bin). A row's group is the sorted position of
+    compact bank ordered by bin; ``ckey``: the sorted bins, ``2**40`` for
+    an invalid center). A row's group (``rkey``) is the sorted position of
     its bin's first valid center; rows whose bin has no valid center (bin
-    -1 included) form the last group, ``K``, which has no centers.
+    -1 included) form the last group, ``K``, which has no centers. The
+    centers of group ``g`` are ``cperm[g:g + n]``, where ``n`` counts the
+    entries of ``ckey`` equal to ``ckey[g]``. Returns ``(cperm int32, ckey
+    int64, rkey int32)``.
+    """
+    bins = cbins if pbins is None else torch.cat([pbins, cbins])
+    K = center_bin.shape[0]
+    ckey, cperm = torch.sort(
+        torch.where(valid, center_bin.long(), _NO_BIN), stable=True)
+    b = bins.long()
+    lo = torch.searchsorted(ckey, b)
+    hi = torch.searchsorted(ckey, b, right=True)
+    rkey = torch.where(hi > lo, lo, K)
+    return cperm.to(torch.int32), ckey, rkey.to(torch.int32)
+
+
+def _plan_keys(pbins, cbins, center_bin, valid):
+    """:func:`_plan_keys_plain` on the tensors' device: the plain version on
+    the CPU; on CUDA the two plan kernels of ``csrc/pair_assign.cu``
+    (``msm_pair_plan_keys``), equal to it element for element, with no
+    host synchronisation. The tensors must already be checked."""
+    if not _on_cuda(cbins, "cbins"):
+        return _plan_keys_plain(pbins, cbins, center_bin, valid)
+    dev = cbins.device
+    n = cbins.shape[0]
+    R = n if pbins is None else 2 * n
+    K = center_bin.shape[0]
+    ws = torch.empty(K + R, dtype=torch.int32, device=dev)
+    cperm, rkey = ws[:K], ws[K:]
+    ckey = torch.empty(K, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):  # launch in the tensors' device context
+        check(library().msm_pair_plan_keys(
+            _ptr(pbins), _ptr(cbins), n, _ptr(center_bin), _ptr(valid), K,
+            _ptr(cperm), _ptr(ckey), _ptr(rkey), _stream(dev),
+        ), "plan keys")
+    return cperm, ckey, rkey
+
+
+def _bin_tiles_plain(pbins, cbins, center_bin, valid, tile_rows=TILE_ROWS):
+    """The H4 launch plan in plain torch: rows grouped by bin, in tiles of
+    one bin.
+
+    Rows, ``cperm`` and the groups are those of :func:`_plan_keys_plain`.
     ``order`` sorts the rows stably by group. ``tiles`` (n_grid, 4) lists,
     per block, (first row in ``order``, rows, first center in ``cperm``,
     centers): at most ``tile_rows`` rows of one group, groups in order,
@@ -248,15 +298,10 @@ def _bin_tiles_plain(pbins, cbins, center_bin, valid, tile_rows=TILE_ROWS):
     a bound on the tile count that needs no host synchronisation. Returns
     ``(order int64, cperm int32, tiles int32)``.
     """
-    bins = cbins if pbins is None else torch.cat([pbins, cbins])
-    dev = bins.device
-    R, K = bins.shape[0], center_bin.shape[0]
-    ckey, cperm = torch.sort(
-        torch.where(valid, center_bin.long(), _NO_BIN), stable=True)
-    b = bins.long()
-    lo = torch.searchsorted(ckey, b)
-    hi = torch.searchsorted(ckey, b, right=True)
-    rkey, order = torch.sort(torch.where(hi > lo, lo, K), stable=True)
+    cperm, ckey, rkey = _plan_keys_plain(pbins, cbins, center_bin, valid)
+    dev = ckey.device
+    R, K = rkey.shape[0], center_bin.shape[0]
+    rkey, order = torch.sort(rkey.long(), stable=True)
     # Rows and centers of each group g = 0..K
     bounds = torch.searchsorted(rkey, torch.arange(K + 2, device=dev))
     rstart, rcount = bounds[:-1], bounds[1:] - bounds[:-1]
@@ -275,38 +320,30 @@ def _bin_tiles_plain(pbins, cbins, center_bin, valid, tile_rows=TILE_ROWS):
     nrows = (rcount[g] - j * tile_rows).clamp(max=tile_rows)
     tiles = torch.stack([first, nrows, g, ncent[g]], 1)
     tiles = torch.where(live[:, None], tiles, torch.zeros_like(tiles))
-    return order, cperm.to(torch.int32), tiles.to(torch.int32).contiguous()
+    return order, cperm, tiles.to(torch.int32).contiguous()
 
 
 def _bin_tiles(pbins, cbins, center_bin, valid):
     """The H4 launch plan (see :func:`_bin_tiles_plain`) on the tensors'
-    device: the plain version on the CPU; on CUDA the plan kernels of
-    ``csrc/pair_assign.cu`` around one stable ``torch.sort`` of the row
-    groups, equal to the plain version element for element, with no host
-    synchronisation. The tensors must already be checked."""
+    device: the plain version on the CPU; on CUDA :func:`_plan_keys`, one
+    stable ``torch.sort`` of the row groups and the tile kernels of
+    ``csrc/pair_assign.cu``, equal to the plain version element for
+    element, with no host synchronisation. The tensors must already be
+    checked."""
     if not _on_cuda(cbins, "cbins"):
         return _bin_tiles_plain(pbins, cbins, center_bin, valid)
     dev = cbins.device
-    n = cbins.shape[0]
-    R = n if pbins is None else 2 * n
-    K = center_bin.shape[0]
+    cperm, ckey, rkey = _plan_keys(pbins, cbins, center_bin, valid)
+    R, K = rkey.shape[0], center_bin.shape[0]
     n_grid = -(-R // TILE_ROWS) + min(K, R) + 1
-    # One int32 workspace: tiles first (16-byte rows), then cperm, the row
-    # groups and the per-group scratch
-    ws = torch.empty(4 * n_grid + K + R + 2 * K + 3, dtype=torch.int32, device=dev)
+    # One int32 workspace: the tiles (16-byte rows), then the per-group
+    # scratch
+    ws = torch.empty(4 * n_grid + 2 * K + 3, dtype=torch.int32, device=dev)
     tiles = ws[:4 * n_grid].view(n_grid, 4)
-    cperm = ws[4 * n_grid:4 * n_grid + K]
-    rkey = ws[4 * n_grid + K:4 * n_grid + K + R]
-    scratch = ws[4 * n_grid + K + R:]
-    ckey = torch.empty(K, dtype=torch.int64, device=dev)
-    lib = library()
+    scratch = ws[4 * n_grid:]
     with torch.cuda.device(dev):  # launch in the tensors' device context
-        check(lib.msm_pair_plan_keys(
-            _ptr(pbins), _ptr(cbins), n, _ptr(center_bin), _ptr(valid), K,
-            _ptr(cperm), _ptr(ckey), _ptr(rkey), _stream(dev),
-        ), "pair_assign plan")
         rkey_s, order = torch.sort(rkey, stable=True)
-        check(lib.msm_pair_plan_tiles(
+        check(library().msm_pair_plan_tiles(
             _ptr(rkey_s), R, _ptr(ckey), K, _ptr(scratch),
             _ptr(scratch) + 4 * (K + 2), _ptr(tiles), n_grid, _stream(dev),
         ), "pair_assign plan")
@@ -435,7 +472,10 @@ def assign_flux(fp, fc, pbins, cbins, w, basis_p, basis_c, target_c,
                 centers, center_bin, valid, n_states, target_p=None):
     """H3 (``fused_assign_flux``): features in, parent and child masked
     assignment, flux-order overrides (``target_p`` before basis), and the
-    (S, S) flux of ``w`` in its dtype. Returns ``(pidx, cidx, fm)``."""
+    (S, S) flux of ``w`` in its dtype. Returns ``(pidx, cidx, fm)``. Any
+    feature width: on CUDA the plan kernels (``_plan_keys``) give each row
+    its bin's group, and the kernel groups each block's rows by bin and
+    scores them against their bin's centers only."""
     if not _on_cuda(fc, "fc"):
         return assign_flux_plain(
             fp, fc, pbins, cbins, w, basis_p, basis_c, target_c, centers,
@@ -453,21 +493,21 @@ def assign_flux(fp, fc, pbins, cbins, w, basis_p, basis_c, target_c,
     if w is None or w.dtype not in (torch.float32, torch.float64):
         raise TypeError("w must be a float32 or float64 tensor")
     _check(w, "w", w.dtype, (N,), dev)
-    _check_rows(N)
+    _check_rows(2 * N)
     _check_states(n_states)
     pidx = torch.empty(N, dtype=torch.int32, device=dev)
     cidx = torch.empty(N, dtype=torch.int32, device=dev)
     fm = torch.zeros((n_states, n_states), dtype=w.dtype, device=dev)
     if N == 0:
         return pidx, cidx, fm
+    cperm, ckey, rkey = _plan_keys(pbins, cbins, center_bin, valid)
     c2 = (centers * centers).sum(1).contiguous()
     with torch.cuda.device(dev):  # launch in the tensors' device context
         err = library().msm_assign_flux(
-            _ptr(fp), _ptr(fc), _ptr(pbins), _ptr(cbins), _ptr(basis_p),
-            _ptr(basis_c), _ptr(target_p), _ptr(target_c), _ptr(w),
-            int(w.dtype == torch.float64), _ptr(centers), _ptr(c2),
-            _ptr(center_bin), _ptr(valid), N, F, K, n_states,
-            _ptr(pidx), _ptr(cidx), _ptr(fm), _stream(dev),
+            _ptr(fp), _ptr(fc), _ptr(basis_p), _ptr(basis_c), _ptr(target_p),
+            _ptr(target_c), _ptr(w), int(w.dtype == torch.float64),
+            _ptr(rkey), _ptr(cperm), _ptr(ckey), _ptr(centers), _ptr(c2),
+            N, F, K, n_states, _ptr(pidx), _ptr(cidx), _ptr(fm), _stream(dev),
         )
     check(err, "assign_flux")
     assign_flux.launches += 1

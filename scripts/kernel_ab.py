@@ -10,7 +10,8 @@ card in one sitting.
 first use), runs H1 with features, H2 with dyadic f64 flux and H3 on the
 main path's problem (102,400 segments, raw 900 -> 30, K = 250), saves the
 outputs to ``FILE`` and prints one JSON line: each kernel's whole-call
-median ms (CUDA events) and device ms (``torch.profiler``), and for each
+median ms (CUDA events) and device ms (``torch.profiler``: H1/H2's
+kernel, all of H3's call), and for each
 hot-step tier the median step ms (host clock around a synchronised step)
 and the device ms of all its kernels a step, with the card's
 ``nvidia-smi`` name and power limit. ``compare`` prints, for each saved
@@ -106,13 +107,15 @@ def run(root, save, reps):
     torch.save({k: v.cpu() for k, v in dict(
         h1_ids=idx1, h1_features=g1, h2_pidx=p2, h2_cidx=c2, h2_flux_f64=f2,
         h3_pidx=p3, h3_cidx=c3, h3_flux_f64=f3).items()}, save)
-    name = "stratified_assign_kernel"
     line = dict(root=root, nvidia_smi=_smi(), kind=torch.cuda.get_device_name(0),
                 reps=reps, n=int(N))
-    for key, fn in (
-        ("h1", lambda: sa.transform_assign_child(*h1, emit_features=True)),
-        ("h2", lambda: sa.transform_assign(*h2, s["w"], *ovr)),
-        ("h3", lambda: sa.assign_flux(*h3)),
+    # H1/H2: their kernel alone; H3: every kernel of its call (plan, c2,
+    # the flux's zero fill), so that trees with other H3 kernels compare
+    for key, fn, name in (
+        ("h1", lambda: sa.transform_assign_child(*h1, emit_features=True),
+         "stratified_assign_kernel"),
+        ("h2", lambda: sa.transform_assign(*h2, s["w"], *ovr), "stratified_assign_kernel"),
+        ("h3", lambda: sa.assign_flux(*h3), None),
     ):
         line[key + "_ms"] = _cuda_ms(fn, reps)
         line[key + "_device_ms"] = _device_ms(fn, name, reps)
