@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``msm_we_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases device,build,kernels,main,analysis,configs] [--out DIR]
+    python3 chip_smoke.py [--phases device,build,kernels,main,analysis,access,configs] [--out DIR]
 
 Phases, each printing one JSON line:
 
@@ -37,7 +37,23 @@ Phases, each printing one JSON line:
    default build on the GPU against the CPU at 30 x 200 (and two GPU
    builds bitwise equal), and both f64 FPT device engines against the
    host engines (1,000 states) and alone (2,500 states).
-6. ``configs``: the build's other configurations. (a) Device-family
+6. ``access``: (a) the bench build (101 x 1,000) and the default build
+   (101 x 10,000), each warm, untraced and then with ``profile_dir`` set
+   (under ``--out``, else a temporary directory): the trace file must
+   exist, parse and hold device kernel events that include H4's kernel,
+   and the traced build's JtargetSS must equal the untraced one's bitwise;
+   printed are the wall seconds, the summed device time, the device's busy
+   share of the wall and the ten device operations with the most time.
+   (b) The seven data-access methods on the bench build's model against
+   the arrays its dataset was made from. (c) ``NonMarkovModel`` and
+   ``MarkovPlusColorModel`` on a seeded three-state walk of 50,000 steps:
+   populations sum to 1, model MFPTs within 20% of the empirical ones.
+   (d) Where h5py can be imported, ``generate_west_h5`` at 30 x 200 into a
+   temporary file and a build from that path on the card, bitwise equal to
+   the ``ArrayWEDataset`` build of the same arrays; where it cannot, the
+   line says so and ``initialize([path])`` must raise the ``ImportError``
+   that names h5py.
+7. ``configs``: the build's other configurations. (a) Device-family
    seeding (``seed_bins_batched``, 12 bins x 16,384 rows) on the card
    against the CPU: equal k-means++ rows, centers and weight sums within
    rtol 1e-5, two card runs bitwise equal. (b) The default build on
@@ -67,7 +83,7 @@ import sys
 import time
 from pathlib import Path
 
-PHASES = ("device", "build", "kernels", "main", "analysis", "configs")
+PHASES = ("device", "build", "kernels", "main", "analysis", "access", "configs")
 
 KERNEL_INFO = {
     "transform_assign_child": dict(
@@ -555,7 +571,9 @@ def _hot_step_ref_check():
     return out
 
 
-def _build(data, device, scan, n_clusters, quiet=True):
+def _build(data, device, scan, n_clusters, quiet=True, profile_dir=None):
+    """The bench build of ``data``: a list of per-iteration arrays, or a
+    list of west.h5 paths."""
     import numpy as np
 
     from msm_we_tpu_torch.binning import RectilinearBinMapper
@@ -564,9 +582,11 @@ def _build(data, device, scan, n_clusters, quiet=True):
 
     # device None: the model's default, the card
     model = modelWE() if device is None else modelWE(device=device)
+    in_memory = isinstance(data[0], dict)
     t0 = time.perf_counter()
     model.build_analyze_model(
-        file_paths=ArrayWEDataset(data),
+        file_paths=ArrayWEDataset(data) if in_memory else data,
+        profile_dir=profile_dir,
         ref_struct={"coords": None, "nAtoms": 4, "coord_ndim": 3},
         modelName="smoke",
         basis_pcoord_bounds=[[9.0, 10.0]],
@@ -689,6 +709,7 @@ def phase_main(args, summary):
         require(counts[name] > 0, f"kernel {name} never launched on the main path")
     summary["launches"] = counts
     summary["build_warm_s"] = builds[1]
+    summary["bench_data"] = data  # reused by the access phase
 
     # ---- references (not counted)
     emit(dict(phase="hot_step_reference", **_hot_step_ref_check()))
@@ -701,7 +722,7 @@ def phase_main(args, summary):
 
 
 def _default_build(data, device, n_clusters=25, n_atoms=4, dimreduce_method="pca",
-                   stratified=True, dim_reduce_kwargs=None):
+                   stratified=True, dim_reduce_kwargs=None, profile_dir=None):
     """``build_analyze_model`` with its defaults (block cross-validation,
     2 groups x 4 blocks; predict route) in the bench configuration."""
     import numpy as np
@@ -730,6 +751,7 @@ def _default_build(data, device, n_clusters=25, n_atoms=4, dimreduce_method="pca
         stratified=stratified,
         show_live_display=False,
         step_kwargs=step_kwargs,
+        profile_dir=profile_dir,
     )
     return time.perf_counter() - t0, model
 
@@ -1024,6 +1046,247 @@ def phase_analysis(args, summary):
     # ---- (d) FPT engines
     for line in _fpt_checks():
         emit(dict(phase="analysis_fpt", **line))
+
+
+# ---------------------------------------------------------------- access
+
+DEVICE_EVENT_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _trace_summary(path, wall_s):
+    """Device time of one Chrome trace written by ``profile_trace``: the
+    events of the device categories (kernels, copies, fills), their summed
+    duration, the time the device was busy (the union of their intervals,
+    so overlapping streams do not count twice), its share of ``wall_s``
+    (the seconds the traced build ran), and the ten operations with the
+    most time."""
+    with open(path) as fh:
+        trace = json.load(fh)
+    events = [e for e in trace["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") in DEVICE_EVENT_CATEGORIES]
+    by_name = {}
+    for e in events:
+        n, t = by_name.get(e["name"], (0, 0.0))
+        by_name[e["name"]] = (n + 1, t + e["dur"])
+    busy_us, end = 0.0, float("-inf")
+    for ts, dur in sorted((e["ts"], e["dur"]) for e in events):
+        if ts + dur > end:
+            busy_us += ts + dur - max(ts, end)
+            end = ts + dur
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    return dict(
+        trace_bytes=os.path.getsize(path), trace_events=len(trace["traceEvents"]),
+        device_events=len(events),
+        kernel_events=sum(e["cat"] == "kernel" for e in events),
+        h4_kernel_events=sum("pair_assign_kernel" in e["name"] for e in events),
+        device_sum_ms=sum(e["dur"] for e in events) / 1e3,
+        device_busy_ms=busy_us / 1e3,
+        device_busy_share=busy_us / 1e6 / wall_s,
+        top_device_ops=[dict(name=name[:120], calls=n, ms=t / 1e3) for name, (n, t) in top],
+    )
+
+
+def _traced_build(name, build, out_dir, smi):
+    """``build(profile_dir)`` warm, untraced and then traced: the trace
+    must hold H4's kernel and leave the result bitwise unchanged."""
+    import numpy as np
+    import torch
+
+    plain_s, plain = build(None)
+    torch.cuda.synchronize()
+    log_dir = os.path.join(out_dir, f"trace_{name}")
+    call_s, traced = build(log_dir)
+    # The build's stages, without the profiler's start (the first use of a
+    # process sets up the tracing library, which takes seconds), its stop
+    # and the export of the trace
+    traced_s = traced.stage_timings.total
+    path = traced.build_profile.trace_path
+    require(os.path.isfile(path) and os.path.dirname(path) == log_dir,
+            f"{name}: no trace file at {path}")
+    t0 = time.perf_counter()
+    line = _trace_summary(path, traced_s)
+    parse_s = time.perf_counter() - t0
+    require(line["kernel_events"] > 0, f"{name}: the trace holds no device kernel events")
+    require(line["h4_kernel_events"] > 0, f"{name}: the trace does not hold H4's kernel")
+    require(float(traced.JtargetSS) == float(plain.JtargetSS),
+            f"{name}: traced JtargetSS {traced.JtargetSS} != untraced {plain.JtargetSS}")
+    jv = [float(v.JtargetSS) for v in getattr(traced, "validation_models", [])]
+    require(jv == [float(v.JtargetSS) for v in getattr(plain, "validation_models", [])],
+            f"{name}: traced validation JtargetSS differ")
+    np.testing.assert_array_equal(np.concatenate(traced.dtrajs),
+                                  np.concatenate(plain.dtrajs))
+    emit(dict(phase="access_trace", build=name, nvidia_smi=smi,
+              segments=int(sum(len(d) for d in traced.dtrajs)),
+              seconds_untraced=plain_s, stages_untraced_s=plain.stage_timings.total,
+              seconds_traced=traced_s, profiler_start_stop_export_s=call_s - traced_s,
+              parse_s=parse_s,
+              JtargetSS=float(traced.JtargetSS), validation_JtargetSS=jv,
+              stages=_stages(traced), trace_file=path, **line))
+    return traced
+
+
+def _data_access_checks(model, data):
+    """The seven data-access methods of ``model`` against ``data``, the
+    arrays its dataset was made from."""
+    import numpy as np
+
+    it, last = 40, len(data) - 1  # the last iteration is incomplete
+    final = lambda i: np.asarray(data[i - 1]["coords"])[:, -1]  # noqa: E731
+    np.testing.assert_array_equal(model.get_iter_coordinates(it), final(it))
+    require(model.n_iter == it and model.nSeg == len(data[it - 1]["weights"]),
+            "get_iter_coordinates did not load the iteration")
+    model.load_iter_coordinates()
+    np.testing.assert_array_equal(model.cur_iter_coords, final(it))
+    model.load_iter_coordinates0()
+    np.testing.assert_array_equal(model.cur_iter_coords,
+                                  np.asarray(data[it - 1]["coords"])[:, 0])
+    model.get_iterations_iters(5, 14)
+    np.testing.assert_array_equal(
+        model.numSegments, [float(len(data[i - 1]["weights"])) for i in range(5, 15)])
+    model.get_iterations()
+    require(model.maxIter == last, f"maxIter {model.maxIter} != {last}")
+    model.get_coordinates(3, 6)
+    np.testing.assert_array_equal(model.all_coords,
+                                  np.concatenate([final(i) for i in range(3, 7)]))
+    model.load_iter_data(it)
+    model.get_seg_histories(4)
+    parents = np.asarray(data[it - 1]["parent_ids"])
+    np.testing.assert_array_equal(model.seg_histories[:, 0], np.arange(model.nSeg))
+    np.testing.assert_array_equal(model.seg_histories[:, 1], parents)
+    np.testing.assert_array_equal(model.weight_histories[:, 0], data[it - 1]["weights"])
+    length = 5
+    trajs = model.get_traj_coordinates(it, length)
+    require(len(trajs) == model.nSeg, "one trajectory a current segment")
+    cut = 0
+    for s, traj in enumerate(trajs):
+        anc, steps = s, []
+        for h in range(length):  # walk back until the lineage was recycled
+            steps.append(final(it - h)[anc])
+            anc = int(np.asarray(data[it - h - 1]["parent_ids"])[anc])
+            if anc < 0:
+                break
+        cut += len(steps) < length
+        np.testing.assert_array_equal(traj, np.array(steps[::-1]))
+    return dict(iteration=it, segments=int(model.nSeg), traj_length=length,
+                recycled_lineages=int(cut), methods=7)
+
+
+def _trajectory_model_checks():
+    """``NonMarkovModel`` and ``MarkovPlusColorModel`` on a seeded
+    three-state walk: populations sum to 1 and the model's MFPTs lie within
+    20% of the empirical ones."""
+    import numpy as np
+
+    import msm_we_tpu_torch as port
+
+    traj = np.random.default_rng(7).integers(0, 3, 50_000)
+    out = {}
+    for name, model in (
+        ("NonMarkovModel",
+         port.NonMarkovModel([traj], stateA=[0], stateB=[2], lag_time=10)),
+        ("MarkovPlusColorModel",
+         port.MarkovPlusColorModel([traj], stateA=[0], stateB=[2], lag_time=10,
+                                   hist_length=20)),
+    ):
+        got, emp = model.mfpts(), model.empirical_mfpts()
+        for key in ("mfptAB", "mfptBA"):
+            require(abs(got[key] - emp[key]) <= 0.2 * emp[key],
+                    f"{name}: {key} {got[key]} vs empirical {emp[key]}")
+        line = dict(mfptAB=float(got["mfptAB"]), mfptBA=float(got["mfptBA"]),
+                    empirical_mfptAB=float(emp["mfptAB"]),
+                    empirical_mfptBA=float(emp["mfptBA"]))
+        if name == "NonMarkovModel":  # the color model estimates no populations
+            pops = model.populations()
+            require(abs(pops.sum() - 1.0) < 1e-9 and pops.min() > 0,
+                    f"{name}: populations {pops}")
+            line["populations"] = [float(p) for p in pops]
+            seqs, weights, n = model.empirical_weighted_FS()
+            require(abs(sum(weights) - 1.0) < 1e-9, "fundamental-sequence weights")
+            line["fundamental_sequences"] = len(seqs)
+        out[name] = line
+    return out
+
+
+def _file_checks(tmp_dir):
+    """With h5py: a west.h5 at 30 x 200 built from its path on the card
+    equals the ``ArrayWEDataset`` build of the same arrays bitwise. Without
+    it: opening a path raises the ``ImportError`` that names h5py."""
+    import numpy as np
+
+    from msm_we_tpu_torch.data import generate_we_arrays, generate_west_h5
+    from msm_we_tpu_torch.model import modelWE
+
+    path = os.path.join(tmp_dir, "west.h5")
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        try:
+            modelWE().initialize(
+                [path], {"coords": None, "nAtoms": 4, "coord_ndim": 3}, "nofile",
+                basis_pcoord_bounds=[[9.0, 10.0]], target_pcoord_bounds=[[0.0, 1.0]])
+        except ImportError as e:
+            require("h5py" in str(e), f"the ImportError does not name h5py: {e}")
+            return dict(h5py=False, import_error=str(e)[:160])
+        raise Failure("initialize([path]) did not raise ImportError without h5py")
+    generate_west_h5(path, n_iterations=30, n_segments=200, seed=17)
+    arrays = generate_we_arrays(n_iterations=30, n_segments=200, seed=17)
+    file_s, f = _build([path], None, True, 25)
+    _s, a = _build(arrays, None, True, 25)
+    np.testing.assert_array_equal(np.concatenate(f.dtrajs), np.concatenate(a.dtrajs))
+    np.testing.assert_array_equal(f.fluxMatrixRaw, a.fluxMatrixRaw)
+    require(float(f.JtargetSS) == float(a.JtargetSS),
+            f"file build JtargetSS {f.JtargetSS} != in-memory {a.JtargetSS}")
+    require(f._dataset._open_handles == {}, "the build left file handles open")
+    return dict(h5py=True, seconds=file_s, bytes=os.path.getsize(path),
+                JtargetSS=float(f.JtargetSS))
+
+
+def phase_access(args, summary, smi):
+    """Traced builds, the data-access methods, the trajectory models and
+    the file path."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from msm_we_tpu_torch.data import generate_we_arrays
+    from msm_we_tpu_torch.ops import stratified_assign as sa
+
+    tmp_dir = tempfile.mkdtemp(prefix="chip_smoke_access_")
+    out_dir = args.out or tmp_dir
+    try:
+        bench = summary.get("bench_data")
+        if bench is None:
+            bench = generate_we_arrays(n_iterations=101, n_segments=1000, seed=17)
+            _build(bench, None, True, 25)  # cold: first use of every path
+        sa.reset_launch_counts()
+        model = _traced_build(
+            "bench", lambda d: _build(bench, None, True, 25, profile_dir=d),
+            out_dir, smi)
+        counts = sa.launch_counts()
+        require(counts["pair_assign"] > 0, "pair_assign never launched in the traced build")
+        emit(dict(phase="access_data", **_data_access_checks(model, bench)))
+        del model, bench
+
+        data = summary.get("analysis_data")
+        if data is None:
+            data = generate_we_arrays(n_iterations=101, n_segments=10_000, seed=17)
+            summary["analysis_data"] = data
+            _default_build(data, "cuda")  # cold
+        sa.reset_launch_counts()
+        model = _traced_build(
+            "default", lambda d: _default_build(data, "cuda", profile_dir=d),
+            out_dir, smi)
+        for k, v in sa.launch_counts().items():
+            counts[k] += v
+        del model, data
+        torch.cuda.empty_cache()
+        summary["launches_access"] = counts
+
+        emit(dict(phase="access_models", **_trajectory_model_checks()))
+        emit(dict(phase="access_file", nvidia_smi=smi, **_file_checks(tmp_dir)))
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
 
 
 # --------------------------------------------------------------- configs
@@ -1336,7 +1599,7 @@ def main(argv=None):
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", default=None,
-                    help="directory for the compiler log")
+                    help="directory for the compiler log and the build traces")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     unknown = set(phases) - set(PHASES)
@@ -1386,12 +1649,16 @@ def main(argv=None):
         phase_main(args, summary)
     if "analysis" in phases:
         phase_analysis(args, summary)
+    if "access" in phases:
+        phase_access(args, summary, smi)
+    summary.pop("bench_data", None)
     if "configs" in phases:
         phase_configs(args, summary)
 
     launches = summary.get("launches", {})
     launches_analysis = summary.get("launches_analysis", {})
     launches_configs = summary.get("launches_configs", {})
+    launches_access = summary.get("launches_access", {})
     kernels = []
     for name, info in KERNEL_INFO.items():
         k = summary.get(name, {})
@@ -1400,6 +1667,7 @@ def main(argv=None):
             replaces=info["replaces"], launches=launches.get(name),
             launches_analysis=launches_analysis.get(name),
             launches_configs=launches_configs.get(name),
+            launches_access=launches_access.get(name),
             max_abs_err=k.get("max_abs_err"), ms=k.get("ms"),
             plain_ms=k.get("plain_ms"), bound_ms=k.get("bound_ms"),
             bound_by=k.get("bound_by"), library_ms=None, mm_ms=k.get("mm_ms"),

@@ -18,11 +18,12 @@ from __future__ import annotations
 import numpy as np
 
 from .._logging import log
+from .common import WEDataAccess
 
 __all__ = ["ArrayWEDataset"]
 
 
-class ArrayWEDataset:
+class ArrayWEDataset(WEDataAccess):
     """WE data held in memory, one dict per iteration."""
 
     def __init__(self, iterations, pcoord_ndim=1):
@@ -106,102 +107,15 @@ class ArrayWEDataset:
         """One frame's coordinates for a subset of segments."""
         return self._coords(n_iter)[np.asarray(rows, dtype=np.int64), frame]
 
-    def iter_child_coords(self, n_iter):
-        """Final-frame coordinates of each segment, NaN rows dropped."""
-        child = self._iter_frame_block(n_iter, -1)
-        good = ~np.isnan(child).any(axis=tuple(range(1, child.ndim)))
-        return child[np.flatnonzero(good)]
-
-    def ancestor_ids(self, n_iter, n_lag):
-        """Each segment's ancestor ``n_lag`` iterations back: ``(anc,
-        warped)``, with ``warped`` True (and ``anc`` -1) where the lineage
-        was recycled inside the window."""
-        if n_lag < 0 or n_iter - n_lag < 1:
-            raise ValueError(
-                f"Iteration {n_iter} has no ancestry {n_lag} iterations back"
-            )
-        n = self.iter_data(n_iter)["n_segs"]
-        anc = np.arange(n)
-        warped = np.zeros(n, dtype=bool)
-        for h in range(1, n_lag + 1):
-            parents = self.iter_data(n_iter - h + 1)["parent_ids_global"]
-            step = np.where(warped, -1, parents[np.where(warped, 0, anc)])
-            warped |= step < 0
-            anc = np.where(warped, -1, step)
-        return anc, warped
-
-    def iter_transition_pairs(self, n_iter, n_lag, basis_coords=None):
-        """Transition pairs at lag ``n_lag`` ending in iteration ``n_iter``
-        (the file reader's rule): start = frame 0 of the ancestor ``n_lag``
-        iterations back, end = the segment's final frame; a lineage
-        recycled inside the window starts from ``basis_coords``.
-        ``weights`` are the current iteration's, zeroed where either used
-        frame has NaN coordinates; ``departure_weights`` the ancestor's
-        (the current weight for recycled lineages). Returns a dict with
-        ``start``, ``end``, ``weights``, ``departure_weights``,
-        ``start_pcoord``, ``warped``, ``anc``."""
-        anc, warped = self.ancestor_ids(n_iter, n_lag)
-        if warped.any() and basis_coords is None:
-            raise ValueError(
-                f"Iteration {n_iter} has lineages recycled within the lag-"
-                f"{n_lag} window; basis_coords is required to substitute "
-                "their start structures (reference semantics, _data.py:170-182)"
-            )
-        d_now = self.iter_data(n_iter)
-        d_lag = self.iter_data(n_iter - n_lag)
-        start_all = self._iter_frame_block(n_iter - n_lag, 0)
-        end = self._iter_frame_block(n_iter, -1)
-        weights = d_now["weights"].copy()
-        bad_end = np.isnan(end).any(axis=tuple(range(1, end.ndim)))
-        if bad_end.any():
-            log.warning(
-                f"Bad end-frame coordinates for segments "
-                f"{np.flatnonzero(bad_end)} in iteration {n_iter}, setting "
-                "weights to 0"
-            )
-            weights[bad_end] = 0.0
-        safe = np.where(warped, 0, anc)
-        start = start_all[safe].copy()
-        start_pcoord = d_lag["pcoord0"][safe].copy()
-        departure = d_lag["weights"][safe].copy()
-        if warped.any():
-            start[warped] = np.asarray(basis_coords, dtype=start.dtype)
-            start_pcoord[warped] = np.nan
-            departure[warped] = d_now["weights"][warped]
-        bad = np.isnan(start).any(axis=tuple(range(1, start.ndim))) & ~warped
-        weights[bad] = 0.0
-        return dict(
-            start=start, end=end, weights=weights, departure_weights=departure,
-            start_pcoord=start_pcoord, warped=warped, anc=anc,
-        )
-
     def check_continuity(self, sample_per_iter=8, full_iters=2, seed=0,
                          last_iter=None):
         """True iff segments' frame-0 coordinates are bit-identical to their
         parent's final frame: all rows of the first ``full_iters`` usable
         iterations, ``sample_per_iter`` random rows of every later one
         (the file reader's check, without its per-file memo)."""
-        rng = np.random.default_rng(seed)
-        usable = sorted(
-            i for i in self._iter_index
-            if i >= 2 and (last_iter is None or i <= last_iter)
+        return self._check_continuity_uncached(
+            sample_per_iter, full_iters, seed, last_iter
         )
-        for pos, i in enumerate(usable):
-            d = self.iter_data(i)
-            rows = np.flatnonzero(d["parent_ids_global"] >= 0)
-            if not len(rows):
-                continue
-            if i - 1 not in self._iter_index:
-                return False
-            if pos >= full_iters and sample_per_iter < len(rows):
-                rows = np.sort(rng.choice(rows, sample_per_iter, replace=False))
-            own_start = self.iter_frame_subset(i, rows, 0)
-            parent_end = self.iter_frame_subset(
-                i - 1, d["parent_ids_global"][rows], -1
-            )
-            if not np.array_equal(own_start, parent_end, equal_nan=True):
-                return False
-        return True
 
     def __deepcopy__(self, memo):
         """The data are read-only: model copies (``post_cluster_model``,

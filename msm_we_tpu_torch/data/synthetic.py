@@ -3,21 +3,37 @@
 Counterpart of ``msm_we_tpu/data/synthetic.py``: the same seeded 1-D
 double-well Brownian WE simulation with split/merge resampling and
 recycling, so one seed gives arrays identical to the JAX package's
-generator. The port ingests the per-iteration arrays directly
-(``data.arrays.ArrayWEDataset``) instead of a west.h5 file; writing a
-west.h5 is not ported.
+generator. The per-iteration arrays are ingested directly
+(``data.arrays.ArrayWEDataset``) or written to a west.h5 file by
+:func:`generate_west_h5` (h5py is imported there, not with this module).
 """
 from __future__ import annotations
 
 import numpy as np
 
 __all__ = [
+    "SEG_INDEX_DTYPE",
     "SynthWESettings",
     "generate_trajectory_arrays",
     "generate_we_arrays",
     "generate_we_replicas",
+    "generate_west_h5",
     "stack_we_runs",
 ]
+
+# WESTPA's seg_index compound dtype (west.h5 layout)
+SEG_INDEX_DTYPE = np.dtype(
+    [
+        ("weight", "<f8"),
+        ("parent_id", "<i8"),
+        ("wtg_n_parents", "<u8"),
+        ("wtg_offset", "<u8"),
+        ("cputime", "<f8"),
+        ("walltime", "<f8"),
+        ("endpoint_type", "<u1"),
+        ("status", "<u1"),
+    ]
+)
 
 
 class SynthWESettings:
@@ -230,6 +246,56 @@ def generate_trajectory_arrays(settings: SynthWESettings):
         ws = ws / ws.sum()
 
     return iterations
+
+
+def generate_west_h5(
+    path, n_iterations=None, n_segments=None, seed=None, warmup=None,
+    settings=None,
+):
+    """Write a synthetic WE dataset to ``path`` in west.h5 layout.
+
+    One extra, trailing incomplete iteration is written so readers that treat
+    the last iteration as incomplete (the reference does:
+    ``_data.py:859-866``) see exactly ``n_iterations`` usable iterations.
+    """
+    from .westh5 import h5py_modules
+
+    explicit = (n_iterations, n_segments, seed, warmup)
+    if settings is None:
+        n_iterations = 50 if n_iterations is None else n_iterations
+        n_segments = 32 if n_segments is None else n_segments
+        seed = 0 if seed is None else seed
+        warmup = 20 if warmup is None else warmup
+        settings = SynthWESettings(
+            n_iterations=n_iterations + 1,
+            n_segments=n_segments,
+            seed=seed,
+            warmup=warmup,
+        )
+    elif any(v is not None for v in explicit):
+        raise ValueError(
+            "Pass either settings= or the individual arguments, not both -- "
+            "explicit arguments would be silently ignored. Note: with "
+            "settings=, no extra trailing iteration is appended, so readers "
+            "see settings.n_iterations - 1 usable iterations."
+        )
+    h5py = h5py_modules()[0]
+    iterations = generate_trajectory_arrays(settings)
+
+    with h5py.File(path, "w") as h5:
+        h5.attrs["west_version"] = "synthetic-msm_we_tpu"
+        for i, data in enumerate(iterations):
+            grp = h5.create_group(f"iterations/iter_{i + 1:08d}")
+            M = len(data["weights"])
+            seg_index = np.zeros(M, dtype=SEG_INDEX_DTYPE)
+            seg_index["weight"] = data["weights"]
+            seg_index["parent_id"] = data["parent_ids"]
+            seg_index["endpoint_type"] = np.where(data["recycled"], 3, 1)
+            seg_index["status"] = 2  # complete
+            grp.create_dataset("seg_index", data=seg_index)
+            grp.create_dataset("pcoord", data=data["pcoords"])
+            grp.create_dataset("auxdata/coord", data=data["coords"])
+    return path
 
 
 def generate_we_arrays(n_iterations=50, n_segments=32, seed=0, warmup=20):

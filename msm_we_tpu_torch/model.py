@@ -25,9 +25,11 @@ run the plain versions.
 rows through ``StratifiedKmeans.predict``). The analysis tail stays in
 host float64.
 
-The data come in memory, as an :class:`~msm_we_tpu_torch.data.ArrayWEDataset`
-passed where the JAX package takes a list of west.h5 paths. What the port
-does not cover yet raises ``NotImplementedError`` naming its ROADMAP entry.
+The data come from a list of west.h5 paths, read by
+:class:`~msm_we_tpu_torch.data.WEDataset` (this needs h5py), or in memory as
+an :class:`~msm_we_tpu_torch.data.ArrayWEDataset` passed in their place.
+What the port does not cover yet raises ``NotImplementedError`` naming its
+ROADMAP entry.
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ from ._device import as_device
 from ._logging import log
 from .binning import find_nearest_bin
 from .data.arrays import ArrayWEDataset
+from .data.westh5 import WEDataset
 from .features import device_row_feats, featurize_all
 from .ops import linalg
 from .ops.kmeans import assign_flat, kmeans_fit
@@ -228,14 +231,15 @@ class modelWE:
                    dedup_coordinates="auto"):
         """Set up the model (reference ``initialize``, ``msm_we.py:143-277``).
 
-        ``fileSpecifier`` is an :class:`ArrayWEDataset` (the port's ingest
-        seam: the JAX package takes west.h5 paths here). ``dedup_coordinates``
+        ``fileSpecifier`` is a list of west.h5 paths (a space-separated
+        string is deprecated), read through a :class:`WEDataset` with
+        ``pcoord_ndim`` and ``auxpath``, or an :class:`ArrayWEDataset`
+        holding the same data in memory. ``dedup_coordinates``
         ("auto", True, False) gathers parent features from the previous
         iteration's child features under WE continuity.
         """
-        if not isinstance(fileSpecifier, ArrayWEDataset):
-            raise _not_ported("reading west.h5 files", "data/westh5.py reader")
-        if auxpath != "coord":
+        in_memory = isinstance(fileSpecifier, ArrayWEDataset)
+        if in_memory and auxpath != "coord":
             raise ValueError("an ArrayWEDataset holds its coordinates as 'coord'")
         if dedup_coordinates not in (True, False, "auto"):
             raise ValueError(
@@ -246,14 +250,23 @@ class modelWE:
             dedup_coordinates = bool(dedup_coordinates)
         self.dedup_coordinates = dedup_coordinates
         self.modelName = modelName
-        if fileSpecifier.pcoord_ndim != pcoord_ndim:
-            raise ValueError(
-                f"dataset has pcoord_ndim={fileSpecifier.pcoord_ndim}, "
-                f"initialize was given {pcoord_ndim}"
-            )
-        self.fileList = ["<in-memory>"]
-        self.n_data_files = 1
+        if in_memory:
+            if fileSpecifier.pcoord_ndim != pcoord_ndim:
+                raise ValueError(
+                    f"dataset has pcoord_ndim={fileSpecifier.pcoord_ndim}, "
+                    f"initialize was given {pcoord_ndim}"
+                )
+            fileList = ["<in-memory>"]
+        elif isinstance(fileSpecifier, str):
+            fileList = fileSpecifier.split(" ")
+            log.warning("HDF5 file paths provided as a string is deprecated; pass a list.")
+        else:
+            fileList = list(fileSpecifier)
+        self.fileList = fileList
+        self.n_data_files = len(fileList)
         self.pcoord_ndim = pcoord_ndim
+        # Provisional; replaced by the file's actual frames per segment on
+        # the first load_iter_data (reference ``_data.py:843``)
         self.pcoord_len = 2
         self.auxpath = auxpath
 
@@ -283,7 +296,11 @@ class modelWE:
             self.processCoordinates = processCoordinates
         self.use_weights_in_clustering = use_weights_in_clustering
 
-        self._dataset = fileSpecifier
+        self._dataset = fileSpecifier if in_memory else WEDataset(
+            fileList, pcoord_ndim=pcoord_ndim, auxpath=auxpath
+        )
+        # Re-initialization drops every cache derived from a previous
+        # dataset: stale features or cluster banks would describe old data
         self._features = None
         self._raw_bins_cache = None
         self._pc_masks_cache = None
@@ -293,8 +310,19 @@ class modelWE:
         self._fluxMatrixParams = None
         self.clusters = None
         self.dtrajs = None
-        self.load_iter_data(1)
-        self.coordsExist = True
+        try:
+            self.load_iter_data(1)
+            # Probe the augmented coordinates too: the flag must reflect
+            # auxdata presence, not just seg_index (reference
+            # msm_we.py:265-273 calls load_iter_coordinates0 here)
+            self._dataset.iter_coord_pairs(1)
+            self.coordsExist = True
+        except KeyError:
+            # Only the coords-not-written-yet case is benign (reference
+            # msm_we.py:270); anything else surfaces loudly
+            if not _suppress_boundary_warning:
+                log.warning("Model initialized, but coordinates do not exist yet.")
+            self.coordsExist = False
 
     # ------------------------------------------------------- bounds & states
     @property
@@ -419,7 +447,9 @@ class modelWE:
     def load_iter_data(self, n_iter):
         """Expose the reference's per-iteration attributes."""
         d = self._dataset.iter_data(n_iter)
-        self.pcoord_len = self._dataset.pcoord_len
+        if self._dataset.pcoord_len is not None:
+            # Read from the data, as the reference does (``_data.py:843``)
+            self.pcoord_len = self._dataset.pcoord_len
         self.n_iter = n_iter
         self.westList = d["west_idx"]
         self.segindList = d["seg_idx"]
@@ -427,6 +457,116 @@ class modelWE:
         self.nSeg = d["n_segs"]
         self.pcoord0List = d["pcoord0"]
         self.pcoord1List = d["pcoord1"]
+
+    def get_iter_coordinates(self, iteration):
+        """Final-frame coordinates of an iteration's segments (NaN dropped)."""
+        self.load_iter_data(iteration)
+        return self._dataset.iter_child_coords(iteration)
+
+    def load_iter_coordinates(self):
+        """Set ``cur_iter_coords`` to the current iteration's final-frame
+        coordinates (reference ``_data.py:557-618``); NaN rows preserved."""
+        self.cur_iter_coords = self._dataset._iter_frame_block(self.n_iter, -1)
+
+    def load_iter_coordinates0(self):
+        """Set ``cur_iter_coords`` to the iteration's *initial* coordinates
+        (reference ``_data.py:620-645``)."""
+        self.cur_iter_coords = self._dataset._iter_frame_block(self.n_iter, 0)
+
+    def get_iterations_iters(self, first_iter, last_iter):
+        """Segment counts over an iteration range (reference
+        ``_data.py:995-1040``). Metadata only: the counts come from the scan
+        index, with no per-iteration I/O."""
+        index = self._dataset._iter_index
+        self.numSegments = np.array(
+            [
+                float(sum(n for _f, n in index[i]))
+                for i in range(first_iter, last_iter + 1)
+                if i in index
+            ]
+        )
+        self.maxIter = last_iter
+
+    def get_coordinates(self, first_iter, last_iter):
+        """Reference ``_data.py:647-675`` (it warns 'not tested or supported')."""
+        log.warning("This function is not tested or supported, use at your own risk!")
+        self.first_iter = first_iter
+        self.last_iter = last_iter
+        blocks = []
+        for i in range(first_iter, last_iter + 1):
+            blocks.append(self._dataset._iter_frame_block(i, -1))
+        self.all_coords = np.concatenate(blocks)
+
+    def get_seg_histories(self, n_hist):
+        """Walk each current segment's ancestry ``n_hist`` iterations back.
+
+        Populates ``seg_histories`` (segment indices; negative once a walker
+        was recycled) and ``weight_histories``, as the reference does by
+        re-reading seg_index chains (``_data.py:322-421``).
+        """
+        if n_hist > self.n_iter:
+            log.warning(f"Too much history requested; reducing n_hist to {self.n_iter}")
+            n_hist = self.n_iter
+        self.n_hist = n_hist
+
+        n_seg = self.nSeg
+        seg_histories = np.zeros((n_seg, n_hist + 1), dtype=int)
+        weight_histories = np.zeros((n_seg, n_hist))
+
+        # Indices are positions in the *concatenated* per-iteration arrays
+        # (globalized parent ids), so multi-file datasets walk correctly.
+        # Each history step is one gather over all segments.
+        seg_histories[:, 0] = np.arange(n_seg)
+        warped = np.zeros(n_seg, dtype=bool)
+        for iH in range(1, n_hist + 1):
+            iter_back = self.n_iter - iH + 1
+            d = self._dataset.iter_data(iter_back)
+            cur = seg_histories[:, iH - 1]
+            # Recycled: the ancestry ends permanently here (the reference's
+            # 'warped' latch, _data.py:392-398); without it the walk would
+            # resume from segment 0's data
+            warped |= cur < 0
+            active = ~warped
+            idx = cur[active]
+            seg_histories[active, iH] = d["parent_ids_global"][idx]
+            weight_histories[active, iH - 1] = d["weights"][idx]
+        self.seg_histories = seg_histories[:, :-1].astype(int)
+        self.weight_histories = weight_histories
+
+    def get_traj_coordinates(self, from_iter, traj_length):
+        """Reconstruct each current walker's continuous coordinate history.
+
+        Walks ``traj_length`` iterations of ancestry back from ``from_iter``
+        and collects each ancestor's final-frame coordinates; histories are
+        truncated where a walker was recycled (parent id < 0). Populates
+        ``self.trajSet`` with one (n_steps, n_atoms, 3) array per current
+        segment (reference ``_data.py:761-806``).
+        """
+        if traj_length > from_iter:
+            traj_length = from_iter - 1
+            log.warning(f"Trajectory length too long: set to {traj_length}")
+        self.load_iter_data(from_iter)
+        self.get_seg_histories(traj_length)
+
+        n_seg = self.nSeg
+        # seg_histories[:, h] = segment index h iterations back (<0 = recycled)
+        coords_by_iter = {}
+        for h in range(traj_length):
+            it = from_iter - h
+            coords_by_iter[it] = self._dataset._iter_frame_block(it, -1)
+
+        traj_set = []
+        for iS in range(n_seg):
+            frames = []
+            for h in range(traj_length - 1, -1, -1):
+                idx = self.seg_histories[iS, h] if h < self.seg_histories.shape[1] else -1
+                if idx < 0:
+                    frames = []  # recycled: history ends here
+                    continue
+                frames.append(coords_by_iter[from_iter - h][idx])
+            traj_set.append(np.array(frames))
+        self.trajSet = traj_set
+        return traj_set
 
     def get_transition_data_lag0(self):
         """``coordPairList``/``transitionWeights``/``departureWeights`` of
@@ -636,9 +776,9 @@ class modelWE:
         non-seeding fill batch through the device scan (the device numerics
         family) instead of host numpy updates for small batches.
         """
-        if user_bin_mapper is None:
-            raise _not_ported("bin mappers read from a west.h5", "data/westh5.py reader")
         bin_mapper = user_bin_mapper
+        if bin_mapper is None:
+            bin_mapper = self._load_bin_mapper_from_h5(bin_iteration)
         self._bin_mapper = bin_mapper
         self._raw_bins_cache = None
         iters_to_use = self._resolve_iters(iters_to_use, first_cluster_iter)
@@ -677,6 +817,28 @@ class modelWE:
         # clusters are cleaned away in organize_fluxMatrix
         self.n_clusters = n_clusters * bin_mapper.nbins
         self.launch_discretization()
+
+    def _load_bin_mapper_from_h5(self, bin_iteration):
+        """Load a WESTPA bin mapper from the h5 (requires westpa); otherwise
+        instruct the user to pass ``user_bin_mapper``."""
+        try:
+            import westpa.tools.binning  # noqa: F401
+
+            from .data.westh5 import h5py_modules
+
+            with h5py_modules()[0].File(self.fileList[0], "r") as h5:
+                mapper, _, _ = westpa.tools.binning.mapper_from_hdf5(
+                    h5["bin_topologies"],
+                    h5[f"iterations/iter_{bin_iteration:08d}"].attrs["binhash"],
+                )
+            return mapper
+        except Exception as e:
+            raise RuntimeError(
+                "Could not load a bin mapper from the H5 file (westpa not "
+                "installed, in-memory data, or no bin_topologies group). Pass "
+                "user_bin_mapper= with a "
+                "msm_we_tpu_torch.binning.RectilinearBinMapper."
+            ) from e
 
     # --------------------------------------------------------- discretization
     def launch_discretization(self, progress_bar=None):
@@ -1061,38 +1223,50 @@ class modelWE:
                             device_pipeline=False, dedup_coordinates="auto"):
         """One-shot build + analysis (reference ``msm_we.py:588-882``).
 
-        ``file_paths`` is an :class:`ArrayWEDataset`. ``device_pipeline``
+        ``file_paths`` is a list of west.h5 paths or an
+        :class:`ArrayWEDataset`. ``device_pipeline``
         picks the discretization route (pair launches, or the predict route
         over the 2N concatenated rows); both give the same dtrajs.
         ``stratified=False`` clusters with aggregated k-means.
         ``cross_validation_groups > 0`` ends the build with block
         cross-validation over ``cross_validation_blocks`` blocks; a failure
-        there raises unless ``allow_validation_failure``. Profiler traces
-        raise ``NotImplementedError``. Stage wall-clocks land in
-        ``self.stage_timings``.
+        there raises unless ``allow_validation_failure``. ``profile_dir``
+        wraps the whole build in a ``torch.profiler`` trace and writes one
+        Chrome trace file there (the profiler is kept as
+        ``self.build_profile``). Stage wall-clocks land in
+        ``self.stage_timings``; the file handles are closed at the end.
         """
-        from .tracing import StageTimer, live_stage_display
+        from .tracing import StageTimer, live_stage_display, profile_trace
 
-        if profile_dir is not None:
-            raise _not_ported("profiler traces (profile_dir)", "tracing")
         timer = StageTimer()
         self.stage_timings = timer
         self.device_pipeline = bool(device_pipeline)
-        with live_stage_display(timer, enabled=show_live_display):
-            self._run_build_pipeline(
-                timer, file_paths=file_paths, ref_struct=ref_struct,
-                modelName=modelName, basis_pcoord_bounds=basis_pcoord_bounds,
-                target_pcoord_bounds=target_pcoord_bounds,
-                dimreduce_method=dimreduce_method, tau=tau,
-                n_clusters=n_clusters, streaming=streaming,
-                stratified=stratified, fluxmatrix_iters=fluxmatrix_iters,
-                fluxmatrix_iters_to_use=fluxmatrix_iters_to_use,
-                step_kwargs=step_kwargs, max_coord_iter=max_coord_iter,
-                dedup_coordinates=dedup_coordinates,
-                cross_validation_groups=cross_validation_groups,
-                cross_validation_blocks=cross_validation_blocks,
-                allow_validation_failure=allow_validation_failure,
-            )
+        self.build_profile = None
+        try:
+            with profile_trace(profile_dir) as prof, live_stage_display(
+                timer, enabled=show_live_display
+            ):
+                self._run_build_pipeline(
+                    timer, file_paths=file_paths, ref_struct=ref_struct,
+                    modelName=modelName, basis_pcoord_bounds=basis_pcoord_bounds,
+                    target_pcoord_bounds=target_pcoord_bounds,
+                    dimreduce_method=dimreduce_method, tau=tau,
+                    n_clusters=n_clusters, streaming=streaming,
+                    stratified=stratified, fluxmatrix_iters=fluxmatrix_iters,
+                    fluxmatrix_iters_to_use=fluxmatrix_iters_to_use,
+                    step_kwargs=step_kwargs, max_coord_iter=max_coord_iter,
+                    dedup_coordinates=dedup_coordinates,
+                    cross_validation_groups=cross_validation_groups,
+                    cross_validation_blocks=cross_validation_blocks,
+                    allow_validation_failure=allow_validation_failure,
+                )
+            self.build_profile = prof
+        finally:
+            # Release cached read handles even when a stage raises: WESTPA
+            # reopens the same west.h5 read-write after a plugin builds a
+            # model, and an in-process 'r' handle makes that reopen fail.
+            # Later model reads lazily reopen.
+            self.close_files()
         log.info("\n" + timer.report())
         return self
 
@@ -1115,17 +1289,28 @@ class modelWE:
         with timer.stage("Loading iterations"):
             self.get_iterations()
             timer.set_note(f"{self.maxIter} iterations")
-        with timer.stage("Loading coordinates"):
-            self.get_coordSet(self.maxIter if max_coord_iter == -1 else max_coord_iter)
-        with timer.stage("Dimensionality reduction"):
-            self.dimReduce(**step_kwargs.get("dimReduce", {}))
-            timer.set_note(f"method={self.dimReduceMethod}, ndim={self.ndim}")
-        with timer.stage("Clustering"):
-            self.cluster_coordinates(
-                n_clusters=n_clusters, streaming=streaming, stratified=stratified,
-                store_validation_model=cross_validation_groups > 0,
-                **step_kwargs.get("clustering", {}),
-            )
+        coord_iter = self.maxIter if max_coord_iter == -1 else max_coord_iter
+        # Read ahead on a daemon thread: per-iteration index data and the
+        # frame blocks the featurizer consumes land in the (budget-bounded)
+        # caches while the stages below do numpy and device work. The
+        # finally stops the reader thread and releases its blocks even when
+        # a stage raises. An in-memory dataset has both as no-ops.
+        self._dataset.start_prefetch(coord_iter)
+        try:
+            with timer.stage("Loading coordinates"):
+                self.get_coordSet(coord_iter)
+            with timer.stage("Dimensionality reduction"):
+                self.dimReduce(**step_kwargs.get("dimReduce", {}))
+                timer.set_note(f"method={self.dimReduceMethod}, ndim={self.ndim}")
+            with timer.stage("Clustering"):
+                self.cluster_coordinates(
+                    n_clusters=n_clusters, streaming=streaming,
+                    stratified=stratified,
+                    store_validation_model=cross_validation_groups > 0,
+                    **step_kwargs.get("clustering", {}),
+                )
+        finally:
+            self._dataset.drop_block_cache()
         fm_iters = list(fluxmatrix_iters)
         if fm_iters[1] == -1:
             fm_iters[1] = self.maxIter
@@ -1161,6 +1346,14 @@ class modelWE:
                     if not allow_validation_failure:
                         raise
 
+    def close_files(self):
+        """Close any cached read-only h5 handles (they reopen lazily on the
+        next read). Call before another writer opens the same west.h5 files
+        in this process -- WESTPA's data manager, augmentation scripts."""
+        if self._dataset is not None:
+            self._dataset.drop_block_cache()
+            self._dataset.close()
+
     # ---------------------------------------------------------- checkpointing
     _DEVICE_CACHES = ("_dev_feats_cache", "_pc_masks_cache")
 
@@ -1171,6 +1364,7 @@ class modelWE:
         state = self.__dict__.copy()
         for key in self._DEVICE_CACHES:
             state[key] = None
+        state["build_profile"] = None  # a profiler belongs to its process
         return state
 
     def __getstate__(self):
@@ -1221,13 +1415,26 @@ class modelWE:
         log.info(f"Model saved to {path}")
 
     @classmethod
-    def load(cls, path, device="cuda"):
-        """Unpickle a model saved by :meth:`save` onto ``device``. Unpickle
-        only files this program wrote: unpickling can run arbitrary code."""
+    def load(cls, path, h5_paths=None, device="cuda"):
+        """Unpickle a model saved by :meth:`save` onto ``device``; optionally
+        re-anchor its west.h5 paths: ``h5_paths`` replaces ``fileList`` and
+        re-opens the dataset (the files were moved since the model was
+        saved). Unpickle only files this program wrote: unpickling can run
+        arbitrary code."""
         import pickle
 
         with open(path, "rb") as fp:
             model = pickle.load(fp)
+        if h5_paths is not None:
+            model.fileList = list(h5_paths)
+            model.n_data_files = len(model.fileList)
+            model._dataset = WEDataset(
+                model.fileList,
+                pcoord_ndim=model.pcoord_ndim,
+                auxpath=model.auxpath,
+            )
+            model._features = None  # cached features refer to the old files
+            model._raw_bins_cache = None
         return model.to(device)
 
 

@@ -1,16 +1,18 @@
-"""Per-stage timing of a build (counterpart of ``msm_we_tpu/tracing.py``:
-``StageTimer`` and ``live_stage_display``; the JAX profiler hook is not
-ported). rich is imported only when the live display is enabled.
+"""Per-stage timing and profiler traces of a build (counterpart of
+``msm_we_tpu/tracing.py``: ``StageTimer``, ``live_stage_display`` and
+``profile_trace``, here over ``torch.profiler``). rich is imported only
+when the live display is enabled.
 """
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import time
 
 from ._logging import log
 
-__all__ = ["StageTimer", "live_stage_display"]
+__all__ = ["StageTimer", "live_stage_display", "profile_trace"]
 
 
 class StageTimer:
@@ -134,3 +136,42 @@ def live_stage_display(timer, enabled=True):
         finally:
             live.update(render())
             timer._on_change = prev
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir=None):
+    """Optionally wrap a block in a ``torch.profiler`` trace.
+
+    No-op when ``log_dir`` is None (yields None), so callers can pass a
+    config value straight through. Otherwise the block runs under
+    ``torch.profiler.profile`` with the CPU activity and, when CUDA is
+    available, the CUDA activity; shapes, stacks and memory are not
+    recorded. On exit, also when the block raises, one Chrome trace file
+    is written into ``log_dir`` (created if absent) and its path logged
+    and kept as ``prof.trace_path``. Yields the profiler, so a caller can
+    read ``key_averages()`` after the block.
+    """
+    if log_dir is None:
+        yield None
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(
+        log_dir, f"build_trace_{os.getpid()}_{time.time_ns()}.json"
+    )
+    prof = profile(activities=activities)
+    prof.trace_path = path
+    prof.__enter__()
+    try:
+        yield prof
+    finally:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.__exit__(None, None, None)
+        prof.export_chrome_trace(path)
+        log.info(f"torch.profiler trace written to {path}")

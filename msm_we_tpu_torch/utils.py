@@ -1,8 +1,9 @@
 """Host numerics the port calls (copies from ``msm_we_tpu/utils.py``):
 basis/target membership, strongly connected sets, reachability, one step
-of inverse iteration, and the transition-matrix helpers of ``msm.fpt``
-(``Interval``, ``check_tmatrix``, ``clean_tmatrix``, ``pops_from_tmatrix``,
-``pseudo_nm_tmatrix``). float64 numpy/scipy on the host; these are control
+of inverse iteration, and the trajectory and transition-matrix helpers of
+``msm`` (``Interval``, ``weighted_choice``, ``map_to_integers``,
+``check_tmatrix``, ``clean_tmatrix``, ``pops_from_tmatrix``,
+``pops_from_nm_tmatrix``, ``pseudo_nm_tmatrix``, ...). float64 numpy/scipy on the host; these are control
 logic and tiny solves, not device work.
 """
 from __future__ import annotations
@@ -21,12 +22,18 @@ __all__ = [
     "is_connected",
     "inverse_iteration",
     "Interval",
+    "reverse_sort_lists",
+    "weighted_choice",
+    "get_shape",
     "num_of_nonzero_elements",
     "normalize",
     "normalize_markov_matrix",
+    "random_markov_matrix",
     "check_tmatrix",
     "clean_tmatrix",
     "pops_from_tmatrix",
+    "pops_from_nm_tmatrix",
+    "map_to_integers",
     "pseudo_nm_tmatrix",
 ]
 
@@ -124,6 +131,48 @@ class Interval:
         raise ValueError(f"Interval specification has unexpected shape {shape}")
 
 
+def reverse_sort_lists(list_1, list_2):
+    """Sort both lists descending by the values of the first."""
+    pairs = sorted(zip(list_1, list_2), key=lambda p: p[0], reverse=True)
+    a, b = zip(*pairs)
+    return a, b
+
+
+def weighted_choice(list_, weights=None):
+    """Pick one element of ``list_`` with probability proportional to ``weights``.
+
+    Uses ``np.random.random()`` once, walking the CDF -- same consumption of the
+    global numpy RNG stream as the reference (``msm_we/utils.py:232-253``), which
+    matters for seeded-test parity.
+    """
+    size = len(list_)
+    if weights is None:
+        probs = np.full(size, 1.0 / size)
+    else:
+        assert size == len(weights)
+        probs = np.asarray(weights, dtype=float) / sum(weights)
+
+    rand = np.random.random()
+    acc = 0.0
+    choice = size - 1
+    for i in range(size):
+        if acc <= rand < acc + probs[i]:
+            choice = i
+            break
+        acc += probs[i]
+    return list_[choice]
+
+
+def get_shape(trajectory):
+    """(n_snapshots, n_variables) of a 1-D or 2-D trajectory array."""
+    shape = np.asarray(trajectory).shape
+    if len(shape) == 1:
+        return shape[0], 1
+    if len(shape) == 2:
+        return shape[0], shape[1]
+    raise ValueError(f"Trajectory shape {shape} is not 1-D or 2-D")
+
+
 def num_of_nonzero_elements(vector):
     return int(np.count_nonzero(vector))
 
@@ -155,6 +204,13 @@ def normalize_markov_matrix(transition_matrix, reversible=False):
     nonzero = row_sums != 0.0
     t_matrix[nonzero] = t_matrix[nonzero] / row_sums[nonzero, None]
     return t_matrix
+
+
+def random_markov_matrix(n_states=5, seed=None):
+    """Random row-stochastic matrix from the global numpy RNG (seedable)."""
+    if seed is not None:
+        np.random.seed(seed)
+    return normalize_markov_matrix(np.random.random((n_states, n_states)))
 
 
 def check_tmatrix(t_matrix, accept_null_rows=True):
@@ -235,6 +291,34 @@ def pops_from_tmatrix(transition_matrix):
     for index in sorted(removed_states):
         ss_solution = np.insert(ss_solution, index, 0.0)
     return ss_solution
+
+
+def pops_from_nm_tmatrix(transition_matrix):
+    """Physical-state populations from a colored (2n x 2n) transition matrix.
+
+    Sums the A-labeled (even) and B-labeled (odd) populations of each physical
+    state (reference ``msm_we/utils.py:463-487``).
+    """
+    check_tmatrix(transition_matrix, accept_null_rows=True)
+    size = len(transition_matrix)
+    if size % 2 != 0:
+        raise ValueError(
+            "The non-Markovian transition matrix has to have an even number of columns/rows"
+        )
+    pops_nm = pops_from_tmatrix(transition_matrix)
+    return pops_nm[0::2] + pops_nm[1::2]
+
+
+def map_to_integers(sequence, mapping_dict=None):
+    """Map a sequence of hashables to consecutive integers, first-seen order."""
+    if mapping_dict is None:
+        mapping_dict = {}
+    new_sequence = np.zeros(len(sequence), dtype="int64")
+    for i, element in enumerate(sequence):
+        if element not in mapping_dict:
+            mapping_dict[element] = len(mapping_dict)
+        new_sequence[i] = mapping_dict[element]
+    return new_sequence, mapping_dict
 
 
 def pseudo_nm_tmatrix(markovian_tmatrix, stateA, stateB):

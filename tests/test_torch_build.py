@@ -252,26 +252,39 @@ def test_device_family_seeding_is_not_ported():
     np.testing.assert_array_equal(s.counts, packed[:, -1])
 
 
-@pytest.mark.parametrize("change", [
-    dict(ref_struct="topology.pdb"),
-    dict(step_kwargs={"clustering": {}}),
-    dict(profile_dir="trace"),
-])
-def test_unported_configurations_raise(arrays, change):
-    """What the port does not cover yet raises, naming its ROADMAP entry
-    (mdtraj topologies, bin mappers read from a west.h5, profiler
-    traces)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port_build(arrays, True, **change)
+@pytest.mark.parametrize("change", ["mdtraj", "bin_mapper", "profile_dir"])
+def test_unported_configurations_raise(arrays, change, tmp_path):
+    """mdtraj topologies are not ported and raise, naming their ROADMAP
+    entry. A missing ``user_bin_mapper`` is read from the west.h5, which
+    without westpa (or on in-memory data) raises the JAX package's
+    ``RuntimeError``; ``profile_dir`` writes a trace and changes nothing."""
+    if change == "mdtraj":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            _port_build(arrays, True, ref_struct="topology.pdb")
+    elif change == "bin_mapper":
+        with pytest.raises(RuntimeError, match="msm_we_tpu_torch.binning"):
+            _port_build(arrays, True, step_kwargs={"clustering": {}})
+    else:
+        traced = _port_build(arrays, True, profile_dir=str(tmp_path))
+        files = os.listdir(tmp_path)
+        assert len(files) == 1 and files[0].endswith(".json")
+        assert traced.build_profile.trace_path == str(tmp_path / files[0])
+        assert traced.JtargetSS == _port_build(arrays, True).JtargetSS
 
 
 def test_west_h5_paths_and_lagged_flux_raise(west_h5, arrays):
-    """west.h5 paths are not ported; a lag with no usable history raises
-    as in the JAX package (lagged flux itself: test_torch_analysis.py)."""
-    with pytest.raises(NotImplementedError, match="westh5"):
-        modelWE(device="cpu").initialize([west_h5], COMMON["ref_struct"], "x",
-                             basis_pcoord_bounds=[[9.0, 10.0]],
-                             target_pcoord_bounds=[[0.0, 1.0]])
+    """west.h5 paths are read by the port's own reader; a lag with no usable
+    history raises as in the JAX package (lagged flux itself:
+    test_torch_analysis.py)."""
+    from msm_we_tpu_torch.data.westh5 import WEDataset as PortWEDataset
+
+    f = modelWE(device="cpu")
+    f.initialize([west_h5], COMMON["ref_struct"], "x",
+                 basis_pcoord_bounds=[[9.0, 10.0]],
+                 target_pcoord_bounds=[[0.0, 1.0]])
+    assert isinstance(f._dataset, PortWEDataset) and f.fileList == [west_h5]
+    assert f.coordsExist is True and f.nSeg == N_SEG
+    f.close_files()
     m = _port_build(arrays, True)
     with pytest.raises(ValueError, match="enough history"):
         m.get_fluxMatrix(N_ITER)
@@ -315,8 +328,9 @@ def test_entry_points_default_to_the_card(entry_point, tmp_path):
 
 
 def test_port_imports_no_jax_h5py_or_networkx():
-    """In a fresh interpreter the port and a tiny CPU build pull in none of
-    the JAX package's stack."""
+    """In a fresh interpreter the port, its reader module, a tiny CPU build
+    and a fitted ``NonMarkovModel`` pull in none of the JAX package's
+    stack."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = textwrap.dedent(f"""
         import sys
@@ -326,7 +340,8 @@ def test_port_imports_no_jax_h5py_or_networkx():
         from msm_we_tpu_torch import (ArrayWEDataset, RectilinearBinMapper,
                                       generate_we_arrays, modelWE)
         import msm_we_tpu_torch.entry, msm_we_tpu_torch.convert
-        from msm_we_tpu_torch.msm import MatrixFPT
+        import msm_we_tpu_torch.data.westh5, msm_we_tpu_torch.tracing
+        from msm_we_tpu_torch.msm import MatrixFPT, NonMarkovModel
         m = modelWE(device="cpu")
         m.build_analyze_model(
             file_paths=ArrayWEDataset(generate_we_arrays(12, 32, seed=17)),
@@ -344,6 +359,10 @@ def test_port_imports_no_jax_h5py_or_networkx():
         m.bootstrap_target_flux(n_boot=5)
         MatrixFPT.fpt_distribution(m.Tmatrix, [0], [m.nBins - 1], [1.0],
                                    max_n_lags=5, engine="device", device="cpu")
+        traj = np.random.default_rng(7).integers(0, 3, 5000)
+        nm = NonMarkovModel([traj], stateA=[0], stateB=[2], lag_time=2)
+        assert abs(nm.populations().sum() - 1.0) < 1e-12 and nm.mfpts()["mfptAB"] > 0
+        assert nm.empirical_weighted_FS()[2] > 0
         loaded = [n for n in ("jax", "msm_we_tpu", "h5py", "networkx", "rich")
                   if n in sys.modules]
         print("LOADED", loaded)
