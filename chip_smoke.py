@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``msm_we_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases device,build,kernels,main,analysis,access,configs] [--out DIR]
+    python3 chip_smoke.py [--phases device,build,kernels,main,analysis,access,routes,configs] [--out DIR]
 
 Phases, each printing one JSON line:
 
@@ -53,7 +53,39 @@ Phases, each printing one JSON line:
    the ``ArrayWEDataset`` build of the same arrays; where it cannot, the
    line says so and ``initialize([path])`` must raise the ``ImportError``
    that names h5py.
-7. ``configs``: the build's other configurations. (a) Device-family
+7. ``routes``: the opt-in device flux and stats route of a build, beside
+   the default host route, both on the card, in the bench configuration
+   (launch counts reset before the counted device-route builds; H3 and H4
+   must launch). (a) At 101 x 10,000 (seed 17), each route cold then warm:
+   the device route (both ``MSM_WE_TPU_DEVICE_*_MIN_ROWS`` knobs at 0, set
+   here and restored) never materializes host ids, launches H3 once per
+   flux call, and agrees with the host route in ``fluxMatrixRaw`` (1e-12
+   of its largest entry), ``JtargetSS`` (1e-10), the cleaned cluster count,
+   the sorted ``pSS`` and, after ``_ensure_discretized()``, the dtrajs; the
+   differing positions of the pcoord sort are counted; stage seconds of
+   both routes, H3's time with f64 weights against its bound, and the
+   device-to-host bytes of the flux and cleaning stages from a trace.
+   (b) Dyadic weights at 30 x 200: flux bitwise the host bincount's, on
+   the card and against the CPU build. (c) Weights from 1e-300 to 1: every
+   nonzero entry to 1e-12. (d) Aggregated clustering at 1.01M, 300
+   clusters, through ``_force_device_flux`` (H3 on one bin). (e) The same
+   two routes at 101 x 100,000 (8 stacked replicas; ``--big-segments``):
+   stage seconds, H3's device time and bound, peak device memory.
+   (f) ``cluster_stats`` on the card against host f64 statistics. (g)
+   ``optimization``: the discrepancy solve on the 1.01M model, both bin
+   functions, an ``OptimizedBinMapper`` assigning 100,000 extended pcoords
+   (H4) and its bytestring round trip onto the card. (h) ``plotting``: the
+   coarse flux profile; importing the module pulls in no matplotlib; the plots on the
+   ``Agg`` backend where matplotlib imports, else the ``ImportError``.
+   (i) Index widths: H3 and H4 on 10,100,000 rows a set of 300 features
+   (row offsets beyond 2^31 elements): H4's ids equal H3's raw ids bitwise,
+   the first and last 65,536 rows equal the plain version except at
+   near-ties, and the dyadic f64 flux is bitwise the scatter of H3's ids.
+   (j) At 30 x 200 with deferred ids and the row knobs unset, the forced
+   device flux mints the dtrajs from H3's ids: bitwise ``pair_discretize``'s,
+   with disjoint and with overlapping basis and target regions. In (a), (d)
+   and (e) H3 is also held against its plain version in row chunks.
+8. ``configs``: the build's other configurations. (a) Device-family
    seeding (``seed_bins_batched``, 12 bins x 16,384 rows) on the card
    against the CPU: equal k-means++ rows, centers and weight sums within
    rtol 1e-5, two card runs bitwise equal. (b) The default build on
@@ -83,7 +115,8 @@ import sys
 import time
 from pathlib import Path
 
-PHASES = ("device", "build", "kernels", "main", "analysis", "access", "configs")
+PHASES = ("device", "build", "kernels", "main", "analysis", "access", "routes",
+          "configs")
 
 KERNEL_INFO = {
     "transform_assign_child": dict(
@@ -1289,6 +1322,752 @@ def phase_access(args, summary, smi):
         shutil.rmtree(tmp_dir, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- routes
+
+ROUTE_ENVS = ("MSM_WE_TPU_DEVICE_FLUX_MIN_ROWS", "MSM_WE_TPU_DEVICE_STATS_MIN_ROWS")
+ROUTE_STAGES = ("Clustering", "Flux matrix", "Cleaning")
+
+
+class _device_route:
+    """Both routing knobs at 0 inside the block, restored after it."""
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in ROUTE_ENVS}
+        for k in ROUTE_ENVS:
+            os.environ[k] = "0"
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class _counting:
+    """Counts the calls of ``module.name`` inside the block."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, 0
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def counted(*a, **k):
+            self.calls += 1
+            return self.real(*a, **k)
+
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def _add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _route_stages(model):
+    st = _stages(model)
+    return {n: st[n] for n in ROUTE_STAGES}
+
+
+def _route_builds(data, n_clusters=25):
+    """The bench build of ``data`` on the card by both routes, each cold
+    then warm; the warm device-route build is counted. Returns (host model,
+    device model, line, counts)."""
+    from msm_we_tpu_torch import fluxmatrix
+
+    line = {}
+    for cold in (True, False):
+        secs, host = _build(data, None, True, n_clusters)
+        line[f"host_{'cold' if cold else 'warm'}_s"] = secs
+        line[f"host_{'cold' if cold else 'warm'}_stages"] = _route_stages(host)
+        with _device_route(), _counting(fluxmatrix, "get_flux_matrix") as flux_calls:
+            (secs, dev), counts = _counted(lambda: _build(data, None, True, n_clusters))
+        line[f"device_{'cold' if cold else 'warm'}_s"] = secs
+        line[f"device_{'cold' if cold else 'warm'}_stages"] = _route_stages(dev)
+    require(host._child_idx is not None, "the host route left its ids deferred")
+    require(dev._child_idx is None and dev.dtrajs is None,
+            "the device route materialized host ids")
+    require(counts["assign_flux"] >= flux_calls.calls >= 2,
+            f"H3 launched {counts['assign_flux']} times in {flux_calls.calls} flux calls")
+    require(counts["pair_assign"] > 0, "H4 never launched on the device route")
+    line.update(flux_calls=flux_calls.calls, launch_counts=counts)
+    return host, dev, line, counts
+
+
+def _route_parity(host, dev):
+    """The device-route build against the host-route build of the same
+    data on the same card."""
+    import numpy as np
+
+    scale = float(np.abs(host.fluxMatrixRaw).max())
+    flux_err = float(np.abs(dev.fluxMatrixRaw - host.fluxMatrixRaw).max()) / scale
+    require(flux_err <= 1e-12, f"fluxMatrixRaw differs between the routes by {flux_err}")
+    j_err = abs(dev.JtargetSS - host.JtargetSS) / abs(host.JtargetSS)
+    require(j_err <= 1e-10, f"JtargetSS differs between the routes by {j_err}")
+    require(dev.fluxMatrix.shape == host.fluxMatrix.shape,
+            "cleaned cluster counts differ between the routes")
+    swapped = int((np.asarray(dev.pcoord_sort_indices)
+                   != np.asarray(host.pcoord_sort_indices)).sum())
+    np.testing.assert_allclose(np.sort(dev.pSS), np.sort(host.pSS), rtol=1e-8,
+                               atol=1e-18)
+    center_err = float(np.nanmax(np.abs(
+        np.sort(dev.targetRMSD_centers[:, 0]) - np.sort(host.targetRMSD_centers[:, 0]))))
+    dev._ensure_discretized()
+    require(np.array_equal(np.concatenate(dev.dtrajs), np.concatenate(host.dtrajs)),
+            "dtrajs differ between the routes after _ensure_discretized()")
+    return dict(flux_rel_err=flux_err, JtargetSS_host=float(host.JtargetSS),
+                JtargetSS_device=float(dev.JtargetSS), JtargetSS_rel_err=j_err,
+                clusters_before=int(host.fluxMatrixRaw.shape[0]),
+                clusters_after=int(host.fluxMatrix.shape[0]),
+                sort_positions_differing=swapped,
+                sorted_center_max_abs_err=center_err, dtrajs_equal=True,
+                segments=int(sum(len(d) for d in host.dtrajs)))
+
+
+PLAIN_CHUNK_ROWS = 1 << 20  # rows a chunk of the plain H3 (its score matrix is rows x K)
+
+
+def _assign_flux_plain_chunked(args, target_p):
+    """``assign_flux_plain`` with its scores taken over runs of
+    ``PLAIN_CHUNK_ROWS`` rows. Returns ``(pidx, cidx, fm, fm_chunks)``:
+    ``fm`` is one scatter of all rows, as the unchunked plain version makes
+    it; ``fm_chunks`` the sum of the chunks' fluxes. An f64 sum of millions
+    of addends depends on its order beyond 1e-12 (equal WE weights round the
+    same way at every addition), so only ``fm`` adds in the kernel's and the
+    host bincount's row order."""
+    import torch
+
+    from msm_we_tpu_torch.ops import stratified_assign as sa
+    from msm_we_tpu_torch.step import _scatter_flux
+
+    n = args[0].shape[0]
+    pids, cids, fm_chunks = [], [], 0
+    for lo in range(0, n, PLAIN_CHUNK_ROWS):
+        rows = slice(lo, lo + PLAIN_CHUNK_ROWS)
+        p, c, f = sa.assign_flux_plain(
+            *(a[rows] for a in args[:8]), *args[8:],
+            target_p=None if target_p is None else target_p[rows])
+        pids.append(p)
+        cids.append(c)
+        fm_chunks = fm_chunks + f
+    pidx, cidx = torch.cat(pids), torch.cat(cids)
+    return pidx, cidx, _scatter_flux(pidx, cidx, args[4], args[11]), fm_chunks
+
+
+def _h3_f64(model, reps):
+    """H3 at a built model's shapes with its f64 weights (the launch
+    ``device_flux_lag0`` makes): the wrapper between CUDA events, the
+    kernel's and the plan kernels' device time, the bound from this run's
+    inputs, the whole ``device_flux_lag0`` call on the host clock, and the
+    plain version on the same tensors in row chunks. The ids must agree but
+    for near-ties; the f64 flux agrees with the plain flux to 1e-12 (with
+    id mismatches: with the scatter of the kernel's own ids)."""
+    import torch
+
+    from msm_we_tpu_torch import fluxmatrix
+    from msm_we_tpu_torch.ops import stratified_assign as sa
+    from msm_we_tpu_torch.step import _scatter_flux
+
+    iters = list(range(2, model.maxIter))
+    args, target_p = fluxmatrix._flux_launch_args(model, iters)
+    fp, fc, pbins, cbins, w = args[:5]
+    bank = args[8:11]
+    n_states = args[11]
+    require(w.dtype == torch.float64, f"the route's weights are {w.dtype}")
+    run = lambda: sa.assign_flux(*args, target_p=target_p)  # noqa: E731
+    pk, ck, fk = run()
+    torch.cuda.synchronize()
+    F = fc.shape[1]
+    pairs = _same_bin_pairs(pbins, bank) + _same_bin_pairs(cbins, bank)
+    bound = _bound([*args[:11], target_p, pk, ck, fk], 2 * pairs * F)
+    line = dict(rows=int(fc.shape[0]), F=int(F), K=int(bank[0].shape[0]),
+                ms=cuda_ms(run, reps), kernel_ms=device_ms(run, "assign_flux_kernel", reps),
+                plan_kernels_ms=device_ms(run, "plan_", reps),
+                bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+    torch.cuda.synchronize()
+    with _device_route():  # the ids stay where they are
+        line["device_flux_lag0_s"], _fm = _timed(
+            lambda: fluxmatrix.device_flux_lag0(model, iters))
+    plain = lambda: _assign_flux_plain_chunked(args, target_p)  # noqa: E731
+    pp, cp, fpl, fpl_chunks = plain()
+    regime = f"routes N={fc.shape[0]},K={bank[0].shape[0]}"
+    mism = sum(
+        _compare_ids("assign_flux", regime, ik, ip, n_states, X, bins, bank)[0]
+        for ik, ip, X, bins in ((pk, pp, fp, pbins), (ck, cp, fc, cbins)))
+    ref = fpl if mism == 0 else _scatter_flux(pk, ck, w, n_states)
+    err = float((fk - ref).abs().max() / ref.abs().max())
+    require(err <= 1e-12, f"H3's f64 flux differs from the plain version by {err}")
+    line.update(id_mismatches_near_ties=mism, max_abs_err=float((fk - ref).abs().max()),
+                flux_rel_err=err, plain_chunk_rows=PLAIN_CHUNK_ROWS,
+                chunk_summed_flux_rel_err=float(
+                    (fk - fpl_chunks).abs().max() / fpl_chunks.abs().max()),
+                plain_ms=cuda_ms(plain, max(reps // 4, 3), warmup=1))
+    return line
+
+
+def _dtoh_bytes(data, out_dir, device_route):
+    """Device-to-host bytes of the flux and cleaning stages of one route,
+    from a ``torch.profiler`` trace of those stages on a freshly clustered
+    model; None where the trace names no copy sizes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from contextlib import nullcontext
+
+    with (_device_route() if device_route else nullcontext()):
+        model = _clustered_bench(data)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model.get_fluxMatrix(0)
+            model.organize_fluxMatrix()
+            torch.cuda.synchronize()
+    path = os.path.join(out_dir, f"trace_routes_{'device' if device_route else 'host'}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")]
+    sizes = [e.get("args", {}).get("bytes") for e in copies]
+    return dict(copies=len(copies),
+                bytes=None if any(b is None for b in sizes) else int(sum(sizes)),
+                ms=sum(e["dur"] for e in copies) / 1e3)
+
+
+def _clustered_bench(data, n_clusters=25, stratified=True, defer=True, weights=None,
+                     bounds=([[9.0, 10.0]], [[0.0, 1.0]])):
+    """A model of the bench configuration on the card, clustered and not
+    yet through the flux stage (``weights``: a function that rewrites the
+    feature weights first; ``bounds``: the basis and target pcoord bounds)."""
+    import numpy as np
+
+    from msm_we_tpu_torch.binning import RectilinearBinMapper
+    from msm_we_tpu_torch.data import ArrayWEDataset
+    from msm_we_tpu_torch.model import modelWE
+
+    m = modelWE()
+    m.initialize(ArrayWEDataset(data), {"coords": None, "nAtoms": 4, "coord_ndim": 3},
+                 "routes", basis_pcoord_bounds=bounds[0],
+                 target_pcoord_bounds=bounds[1], dim_reduce_method="pca", tau=1.0)
+    m.get_iterations()
+    m.get_coordSet(m.maxIter)
+    m.dimReduce()
+    if weights is not None:
+        feats = m._featurize_all()
+        feats["weights"] = weights(feats["weights"])
+    if stratified:
+        m.cluster_coordinates(
+            n_clusters=n_clusters, stratified=True,
+            user_bin_mapper=RectilinearBinMapper([np.linspace(0, 10, 13)]),
+            scan_small_batches=True, defer_discretization=defer)
+    else:
+        m.cluster_coordinates(n_clusters=n_clusters, stratified=False)
+    return m
+
+
+def _tail(model):
+    """Flux matrix through JtargetSS on a clustered model; returns the
+    stage seconds."""
+    out = {}
+    out["Flux matrix"], _ = _timed(lambda: model.get_fluxMatrix(0))
+    out["Cleaning"], _ = _timed(model.organize_fluxMatrix)
+    model.get_Tmatrix()
+    model.get_steady_state()
+    model.get_steady_state_target_flux()
+    return out
+
+
+def _dyadic_check():
+    """(b) Dyadic weights (j/16) at 30 x 200: the device route's flux equals
+    the host bincount bitwise, on the card and against the CPU build."""
+    import numpy as np
+
+    from msm_we_tpu_torch.data import generate_we_arrays
+
+    data = generate_we_arrays(n_iterations=30, n_segments=200, seed=17)
+    rng = np.random.default_rng(18)
+    for d in data:
+        d["weights"] = rng.integers(1, 17, len(d["weights"])) / 16.0
+    _t, host = _build(data, "cuda", False, 25)
+    _t, cpu = _build(data, "cpu", False, 25)
+    with _device_route():
+        (_t, dev), counts = _counted(lambda: _build(data, "cuda", False, 25))
+    require(dev._child_idx is None and counts["assign_flux"] >= 2,
+            "the dyadic build did not take the device route")
+    require(np.array_equal(dev.fluxMatrixRaw, host.fluxMatrixRaw),
+            "dyadic flux: device route is not bitwise the host bincount")
+    require(dev.JtargetSS == host.JtargetSS, "dyadic JtargetSS differs between the routes")
+    dev._ensure_discretized()
+    flips = int((np.concatenate(dev.dtrajs) != np.concatenate(cpu.dtrajs)).sum())
+    if flips == 0:
+        require(np.array_equal(dev.fluxMatrixRaw, cpu.fluxMatrixRaw),
+                "dyadic flux: device route on the card is not bitwise the CPU build's")
+    else:
+        require(flips <= 1e-3 * sum(len(d) for d in cpu.dtrajs),
+                f"{flips} dtraj rows flip between the card and the CPU")
+    return dict(check="dyadic_30x200", flux_bitwise_host_route=True,
+                dtraj_flips_vs_cpu=flips, flux_bitwise_cpu_build=flips == 0,
+                JtargetSS=float(dev.JtargetSS), launch_counts=counts)
+
+
+def _tiny_weight_check():
+    """(c) Weights spanning 1e-300 to 1 inside every iteration of a 30 x 200
+    run: each nonzero entry of the device f64 flux equals the host
+    bincount's to 1e-12, and none is flushed to zero."""
+    import numpy as np
+
+    from msm_we_tpu_torch.data import generate_we_arrays
+    from msm_we_tpu_torch.model import modelWE
+
+    data = generate_we_arrays(n_iterations=30, n_segments=200, seed=17)
+    rng = np.random.default_rng(19)
+    m = _clustered_bench(
+        data, defer=False,
+        weights=lambda w: w * 10.0 ** rng.uniform(-300, 0, len(w)))
+    w = m._featurize_all()["weights"]
+    require(m._device_f64_weights_ok(w) is True, "device_f64_weights_ok is not True")
+    m.get_fluxMatrix(0)
+    host = m.fluxMatrixRaw.copy()
+    modelWE._force_device_flux = True
+    try:
+        _none, counts = _counted(lambda: m.get_fluxMatrix(0))
+    finally:
+        modelWE._force_device_flux = False
+    require(counts["assign_flux"] == 1, "the forced flux call did not launch H3 once")
+    dev = m.fluxMatrixRaw
+    nz = host > 0
+    require(np.array_equal(dev > 0, nz), "a tiny-weight entry was flushed to zero")
+    err = float(np.max(np.abs(dev[nz] - host[nz]) / host[nz]))
+    require(err <= 1e-12, f"tiny-weight flux differs from the host bincount by {err}")
+    return dict(check="weights_1e-300", weight_min=float(w[w > 0].min()),
+                weight_max=float(w.max()), nonzero_entries=int(nz.sum()),
+                smallest_entry=float(host[nz].min()), max_rel_err=err,
+                device_f64_weights_ok=True)
+
+
+def _deferred_ids_check():
+    """(j) At 30 x 200 with deferred ids and the row knobs unset, the forced
+    device flux mints the build's dtrajs from H3's ids on the card: bitwise
+    the predict-order ids of ``pair_discretize`` (H4), with disjoint regions
+    and with overlapping ones (rows inside both), and the flux equals the
+    host bincount of those ids to 1e-12."""
+    import numpy as np
+
+    from msm_we_tpu_torch.data import generate_we_arrays
+    from msm_we_tpu_torch.discretization import pair_discretize
+    from msm_we_tpu_torch.model import modelWE
+
+    data = generate_we_arrays(n_iterations=30, n_segments=200, seed=17)
+    line = dict(check="deferred_ids_30x200")
+    for name, bounds in (("disjoint", ([[9.0, 10.0]], [[0.0, 1.0]])),
+                         ("overlapping", ([[1.5, 3.0]], [[0.0, 2.0]]))):
+        m = _clustered_bench(data, bounds=bounds)
+        require(m._parent_idx is None and m.dtrajs is None,
+                "the deferred clustering stored ids")
+        masks = m._pc_masks()
+        both = int((masks["basis_c"] & masks["target_c"]).sum())
+        require((both > 0) == (name == "overlapping"),
+                f"{name}: {both} child rows lie inside both regions")
+        modelWE._force_device_flux = True
+        try:
+            _none, counts = _counted(lambda: m.get_fluxMatrix(0))
+        finally:
+            modelWE._force_device_flux = False
+        require(counts["assign_flux"] == 1 and counts["pair_assign"] == 0,
+                f"{name}: the forced flux call launched {counts}")
+        require(m._parent_idx is not None and m._scored_on_host is False,
+                f"{name}: the H3 launch did not mint the ids")
+        dev_flux = m.fluxMatrixRaw.copy()
+        pid, cid = pair_discretize(m, m._strat, *m._raw_we_bins())
+        require(np.array_equal(m._parent_idx, pid) and np.array_equal(m._child_idx, cid)
+                and np.array_equal(np.concatenate(m.dtrajs), cid),
+                f"{name}: the ids minted from H3 are not pair_discretize's")
+        m.get_fluxMatrix(0)  # ids stored: the host bincount
+        err = float(np.abs(dev_flux - m.fluxMatrixRaw).max() / np.abs(m.fluxMatrixRaw).max())
+        require(err <= 1e-12, f"{name}: the minting launch's flux is off by {err}")
+        line[name] = dict(rows_in_both_regions=both, ids_bitwise_pair_discretize=True,
+                          flux_rel_err=err)
+    return line
+
+
+def _aggregated_routes(data, reps):
+    """(d) Aggregated clustering (300 clusters) at 1.01M: one clustering,
+    then the flux matrix through JtargetSS on two copies, by the host route
+    and through ``_force_device_flux`` (H3 on one bin of 300 centers)."""
+    import copy
+
+    import numpy as np
+
+    from msm_we_tpu_torch.model import modelWE
+
+    cluster_s, base = _timed(lambda: _clustered_bench(data, n_clusters=300,
+                                                      stratified=False))
+    host, dev = copy.deepcopy(base), base
+    host_stages = _tail(host)
+    modelWE._force_device_flux = True
+    try:
+        dev_stages, counts = _counted(lambda: _tail(dev))
+        h3 = _h3_f64(dev, reps)
+    finally:
+        modelWE._force_device_flux = False
+    require(counts["assign_flux"] == 1,
+            f"the aggregated flux stage launched H3 {counts['assign_flux']} times")
+    scale = float(np.abs(host.fluxMatrixRaw).max())
+    flux_err = float(np.abs(dev.fluxMatrixRaw - host.fluxMatrixRaw).max()) / scale
+    j_err = abs(dev.JtargetSS - host.JtargetSS) / abs(host.JtargetSS)
+    require(flux_err <= 1e-12, f"aggregated flux differs between the routes by {flux_err}")
+    require(j_err <= 1e-10, f"aggregated JtargetSS differs between the routes by {j_err}")
+    return dict(check="aggregated_1.01M", n_clusters=300, clustering_s=cluster_s,
+                host_stages=host_stages, device_stages=dev_stages,
+                flux_rel_err=flux_err, JtargetSS_host=float(host.JtargetSS),
+                JtargetSS_device=float(dev.JtargetSS), JtargetSS_rel_err=j_err,
+                clusters_after=int(dev.fluxMatrix.shape[0]), h3_one_bin=h3,
+                launch_counts=counts), counts
+
+
+def _big_routes(args, smi):
+    """(e) Both routes at 101 x ``--big-segments`` (8 stacked replicas,
+    bins seeding through the device family)."""
+    import torch
+
+    from msm_we_tpu_torch.data import generate_we_replicas
+
+    per = args.big_segments // 8
+    gen_s, data = _timed(lambda: generate_we_replicas(
+        n_iterations=101, n_segments=per, n_replicas=8, seed=17, processes=8))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    host, dev, line, counts = _route_builds(data)
+    peak = torch.cuda.max_memory_allocated()
+    del data
+    families = dev._strat.seeded_by_family
+    require(families["device"] >= 1, f"no bin seeded through the device family: {families}")
+    h3 = _h3_f64(dev, max(args.reps // 4, 3))
+    parity = _route_parity(host, dev)
+    return dict(check="big_build", nvidia_smi=smi, iterations=101,
+                segments_per_iteration=per * 8, replicas=8, generate_s=gen_s,
+                seeded_by_family=families, peak_device_bytes=int(peak),
+                h3_f64=h3, **line, **parity), counts
+
+
+def _cluster_stats_check(dev_model):
+    """(f) ``cluster_stats`` on the card: at the device-route model (ids
+    still deferred) against the host f64 statistics of
+    ``get_cluster_centers``; and on seeded ids with NaN pcoords in two
+    dimensions against a numpy f64 reference."""
+    import numpy as np
+    import torch
+
+    from msm_we_tpu_torch import structures
+    from msm_we_tpu_torch.discretization import device_child_assign
+    from msm_we_tpu_torch.step import cluster_stats
+
+    m = dev_model
+    require(m._child_idx is None, "the device-route model already holds host ids")
+    n, strat = m.n_clusters, m._strat
+    k_max = strat.n_bins * strat.k
+    built = (m.targetRMSD_centers, m.targetRMSD_minmax)  # put back at the end
+    order_d = structures._get_cluster_centers_device(m)
+    centers_d, minmax_d = m.targetRMSD_centers.copy(), m.targetRMSD_minmax.copy()
+    counts_d = cluster_stats(device_child_assign(m, strat), structures._device_p1(m),
+                             n, k_max)[0][:n, 0].cpu().numpy()
+    m._ensure_discretized()
+    order_h = m.get_cluster_centers()
+    ids = m._child_idx
+    counts_h = np.bincount(ids[ids < n], minlength=n)
+    require(np.array_equal(counts_d, counts_h), "device cluster counts differ from the host's")
+    mean_err = float(np.nanmax(np.abs(np.sort(centers_d[:, 0]) - np.sort(m.targetRMSD_centers[:, 0]))
+                               / np.abs(np.sort(m.targetRMSD_centers[:, 0]))))
+    require(mean_err <= 1e-5, f"device cluster means differ from the host's by {mean_err}")
+    inv_d, inv_h = np.argsort(order_d), np.argsort(order_h)
+    require(np.array_equal(
+        minmax_d[inv_d][:n],
+        m.targetRMSD_minmax[inv_h][:n].astype(np.float32).astype(np.float64)),
+        "device cluster min/max differ from the host's after the f32 cast")
+
+    m.targetRMSD_centers, m.targetRMSD_minmax = built
+
+    rng = np.random.default_rng(23)
+    N, ndim, live = 1_010_000, 2, 270
+    cid = rng.integers(-1, 302, N).astype(np.int32)
+    p1 = rng.uniform(0, 10, (N, ndim)).astype(np.float32)
+    nan_rows = rng.choice(N, 1000, replace=False)
+    p1[nan_rows, rng.integers(0, ndim, 1000)] = np.nan
+    got = [t.cpu().numpy() for t in cluster_stats(
+        torch.as_tensor(cid, device="cuda"), torch.as_tensor(p1, device="cuda"), live, 300)]
+    for dim in range(ndim):
+        ok = (cid >= 0) & (cid < live) & ~np.isnan(p1[:, dim])
+        c = np.bincount(cid[ok], minlength=301)
+        sm = np.bincount(cid[ok], weights=p1[ok, dim].astype(np.float64), minlength=301)
+        require(np.array_equal(got[0][:, dim], c), "cluster_stats counts (NaN rows) differ")
+        np.testing.assert_allclose(got[1][:live, dim], sm[:live], rtol=1e-5)
+        lo = np.full(301, np.inf, np.float32)
+        hi = np.full(301, -np.inf, np.float32)
+        np.minimum.at(lo, cid[ok], p1[ok, dim])
+        np.maximum.at(hi, cid[ok], p1[ok, dim])
+        require(np.array_equal(got[2][:, dim], lo) and np.array_equal(got[3][:, dim], hi),
+                "cluster_stats min/max (NaN rows) differ")
+    return dict(check="cluster_stats", clusters=int(n), counts_equal=True,
+                mean_max_rel_err=mean_err, minmax_equal_after_f32_cast=True,
+                sort_positions_differing=int((order_d != order_h).sum()),
+                nan_case_rows=N, nan_case_nan_rows=1000, nan_case_equal=True)
+
+
+def _optimization_check(model):
+    """(g) ``optimization`` on the 1.01M host-route model."""
+    import numpy as np
+
+    from msm_we_tpu_torch import optimization as opt
+    from msm_we_tpu_torch.model import StratifiedClustersShim
+
+    n_we_bins = 12
+    T, pss = np.asarray(model.Tmatrix), np.squeeze(np.asarray(model.pSS))
+    solve_s, (disc, var) = _timed(lambda: opt.solve_discrepancy(T, pss, model.indTargets))
+    require(np.isfinite(disc).all() and np.isfinite(var).all(),
+            "the discrepancy solve is not finite")
+    b = np.zeros(len(pss))
+    b[model.indTargets] = 1.0
+    lhs = (np.eye(len(T)) - T + np.outer(pss, pss) / (pss @ pss)) @ disc
+    residual = float(np.abs(lhs - (b - pss[model.indTargets].sum())).max())
+    require(residual <= 1e-8, f"the discrepancy system's residual is {residual}")
+    uniform = opt.get_uniform_mfpt_bins(var, disc, pss, n_we_bins)
+    require(len(uniform) == len(pss) and uniform.min() >= 0, "uniform bins malformed")
+    clustered, counts = _counted(lambda: opt.get_clustered_mfpt_bins(
+        var, disc, pss, n_we_bins, seed=1, device=model.device))
+    require(not np.isnan(clustered).any()
+            and 2 <= len(np.unique(clustered)) <= n_we_bins - 2,
+            "clustered bins malformed")
+    # The branch that ran: sklearn's KMeans where it imports (no launch),
+    # else the port's k-means on the card (H4 launches)
+    import importlib.util
+
+    if importlib.util.find_spec("sklearn") is not None:
+        branch = "sklearn"
+        require(counts["pair_assign"] == 0, "sklearn imports but H4 launched")
+    else:
+        branch = "kmeans_fit"
+        require(counts["pair_assign"] > 0,
+                "without sklearn the port's k-means must run on the card (H4)")
+
+    # Cluster id -> WE bin: the sorted states' bins carried back to global ids
+    n = model.n_clusters
+    table = np.zeros(n + 2)
+    table[np.asarray(model.pcoord_sort_indices)] = uniform
+    strat = model._strat
+    mapper = opt.OptimizedBinMapper(
+        nbins=n_we_bins, n_original_pcoord_dims=1,
+        target_pcoord_bounds=model.target_pcoord_bounds,
+        basis_pcoord_bounds=model.basis_pcoord_bounds,
+        previous_binmapper=model._bin_mapper, microstate_mapper=table,
+        stratified_clusterer=StratifiedClustersShim(model._bin_mapper, None, strat))
+    require(mapper.n_clusters == n + 2, f"the mapper counts {mapper.n_clusters} clusters")
+    feats = model._featurize_all()
+    start = len(feats["weights"]) // 5
+    rows = slice(start, start + 100_000)
+    pc, X = feats["pcoord1"][rows], feats["child"][rows]
+    coords = np.column_stack([pc, X])
+    (assign_s, got), c2 = _counted(lambda: _timed(lambda: mapper.assign(coords)))
+    require(c2["pair_assign"] > 0, "the mapper's assignment did not launch H4")
+    _add_counts(counts, c2)
+    basis, target = model.is_WE_basis(pc), model.is_WE_target(pc)
+    ids = strat.predict(X, model._bin_mapper.assign(pc), is_basis=basis, is_target=target)
+    want = table[ids]
+    want[target] = n_we_bins - 1
+    want[basis] = n_we_bins - 2
+    require(np.array_equal(got, want.astype(int)),
+            "OptimizedBinMapper.assign differs from predict + table by hand")
+    blob = mapper.pickle_and_encode()
+    # The transport format holds CPU state; the constructor puts it on the card
+    import base64
+
+    require(b"cuda" not in base64.b64decode(blob),
+            "the pickled mapper does not hold CPU state")
+    restored = opt.OptimizedBinMapper(bytestring=blob)
+    require(restored.clusterer.strat.device.type == "cuda",
+            "the bytestring constructor did not put the mapper on the card")
+    got2, c3 = _counted(lambda: restored.assign(coords))
+    require(c3["pair_assign"] > 0, "the restored mapper's assignment did not launch H4")
+    _add_counts(counts, c3)
+    require(np.array_equal(got2, got),
+            "assignments differ after the bytestring round trip (on the card)")
+    on_cpu = opt.OptimizedBinMapper(bytestring=blob, device="cpu")
+    cpu_diff = int((on_cpu.assign(coords) != got).sum())
+    require(cpu_diff <= 1e-3 * len(got),
+            f"{cpu_diff} assignments differ after the round trip (on the CPU)")
+    return dict(check="optimization", states=len(pss), solve_discrepancy_s=solve_s,
+                residual=residual, clustered_branch=branch, we_bins=n_we_bins,
+                mapper_rows=len(got), mapper_assign_s=assign_s,
+                mapper_equals_by_hand=True, bytestring_bytes=len(blob),
+                round_trip_equal_on_card=True, round_trip_cpu_differing=cpu_diff,
+                launch_counts=counts), counts
+
+
+def _index_width_check():
+    """(i) H3 and H4 at 10.1M rows a set x 300 features, 12 bins x 25
+    centers: element offsets pass 2^31, the row index 2N stays below it."""
+    import numpy as np
+    import torch
+
+    from msm_we_tpu_torch.ops import stratified_assign as sa
+    from msm_we_tpu_torch.step import _scatter_flux
+
+    dev = torch.device("cuda")
+    N, F, n_bins, k, edge = 10_100_000, 300, 12, 25, 65_536
+    gen = torch.Generator(dev).manual_seed(29)
+    fp = torch.randn(N, F, device=dev, generator=gen)
+    fc = torch.randn(N, F, device=dev, generator=gen)
+    pb = torch.randint(0, n_bins, (N,), device=dev, generator=gen, dtype=torch.int32)
+    cb = torch.randint(0, n_bins, (N,), device=dev, generator=gen, dtype=torch.int32)
+    w = torch.randint(1, 17, (N,), device=dev, generator=gen).double() / 16.0
+    bank = (torch.randn(n_bins * k, F, device=dev, generator=gen),
+            torch.arange(n_bins, device=dev, dtype=torch.int32).repeat_interleave(k),
+            torch.ones(n_bins * k, dtype=torch.bool, device=dev))
+    none = torch.zeros(N, dtype=torch.bool, device=dev)
+    SS = n_bins * k + 2
+    torch.cuda.synchronize()
+    h3_s, (pk, ck, fm) = _timed(lambda: (
+        sa.assign_flux(fp, fc, pb, cb, w, none, none, none, *bank, SS),
+        torch.cuda.synchronize())[0])
+    h4_s, (hp, hc) = _timed(lambda: (
+        sa.pair_assign(fp, fc, pb, cb, *bank), torch.cuda.synchronize())[0])
+    require(torch.equal(pk, hp) and torch.equal(ck, hc),
+            "index widths: H4's ids are not bitwise H3's raw ids")
+    require(torch.equal(fm, _scatter_flux(pk, ck, w, SS)),
+            "index widths: the dyadic f64 flux is not the scatter of H3's ids")
+    mism = ties = 0
+    for X, ids, bins in ((fp, pk, pb), (fc, ck, cb)):
+        for rows in (slice(0, edge), slice(N - edge, N)):
+            plain = sa.pair_assign_plain(None, X[rows].contiguous(), None,
+                                         bins[rows].contiguous(), *bank)
+            m, t = _compare_ids("assign_flux", "N=10.1M,F=300", ids[rows], plain, SS,
+                                X[rows], bins[rows], bank)
+            mism, ties = mism + m, ties + t
+    return dict(check="index_widths", rows=N, F=F, K=n_bins * k,
+                elements_a_set=N * F, h3_first_call_s=h3_s, h4_first_call_s=h4_s,
+                h4_bitwise_h3=True, flux_bitwise=True, edge_rows=4 * edge,
+                id_mismatches=mism, near_ties=ties,
+                peak_device_bytes=int(torch.cuda.max_memory_allocated()))
+
+
+def _plotting_check(model, had_matplotlib, out_dir):
+    """(h) ``plotting`` on the 1.01M host-route model."""
+    import numpy as np
+
+    from msm_we_tpu_torch import plotting
+
+    require(("matplotlib" in sys.modules) == had_matplotlib,
+            "importing msm_we_tpu_torch.plotting pulled in matplotlib")
+    model.get_committor()
+    model.get_flux()
+    model.get_flux_committor()
+    fluxes, bounds = model.get_coarse_flux_profile()
+    require(len(fluxes) == len(bounds) and np.isfinite(fluxes).all(),
+            "the coarse flux profile is malformed")
+    line = dict(check="plotting", coarse_bins=len(fluxes),
+                import_pulls_no_matplotlib=True)
+    try:
+        import matplotlib
+    except ImportError:
+        try:
+            model.plot_flux(suppress_validation=True)
+        except ImportError as e:
+            require("matplotlib" in str(e), f"the ImportError does not name matplotlib: {e}")
+            return dict(matplotlib=False, import_error=str(e)[:120], **line)
+        raise Failure("plot_flux did not raise ImportError without matplotlib")
+    matplotlib.use("Agg")
+    cwd = os.getcwd()
+    os.makedirs(out_dir, exist_ok=True)
+    os.chdir(out_dir)  # plot_committor saves into the working directory
+    try:
+        model.first_iter, model.last_iter = 1, model.maxIter
+        figures = {
+            "flux": model.plot_flux(suppress_validation=True).figure,
+            "flux_committor": model.plot_flux_committor(suppress_validation=True).figure,
+            "flux_committor_pcoordcolor":
+                model.plot_flux_committor_pcoordcolor()[0].figure,
+            "committor": model.plot_committor(),
+            "coarse_flux_profile": model.plot_coarse_flux_profile()[0],
+            "implied_timescales": model.plot_implied_timescales()[0],
+            "ck_test": model.plot_ck_test(sets=2)[0],
+        }
+        for name, fig in figures.items():
+            fig.savefig(f"routes_{name}.png")
+            require(os.path.getsize(f"routes_{name}.png") > 0, f"plot {name} is empty")
+    finally:
+        os.chdir(cwd)
+    return dict(matplotlib=True, plots=sorted(figures), **line)
+
+
+def phase_routes(args, summary, smi):
+    """The device flux and stats route beside the host route,
+    ``optimization`` and ``plotting``."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from msm_we_tpu_torch.data import generate_we_arrays
+
+    had_matplotlib = "matplotlib" in sys.modules
+    total = {}
+    tmp_dir = tempfile.mkdtemp(prefix="chip_smoke_routes_")
+    out_dir = args.out or tmp_dir
+    os.makedirs(out_dir, exist_ok=True)
+    try:
+        emit(dict(phase="routes", **_dyadic_check()))
+        emit(dict(phase="routes", **_tiny_weight_check()))
+        emit(dict(phase="routes", **_deferred_ids_check()))
+
+        data = summary.get("analysis_data")
+        if data is None:
+            data = generate_we_arrays(n_iterations=101, n_segments=10_000, seed=17)
+            summary["analysis_data"] = data
+        # (a) both routes at 1.01M
+        host, dev, line, counts = _route_builds(data)
+        _add_counts(total, counts)
+        h3 = _h3_f64(dev, args.reps)
+        stats = _cluster_stats_check(dev)  # materializes the ids at its end
+        parity = _route_parity(host, dev)
+        emit(dict(phase="routes", check="route_parity_1.01M", nvidia_smi=smi,
+                  h3_f64=h3, **line, **parity))
+        emit(dict(phase="routes", **stats))
+        summary["routes_h3"] = h3
+        del dev
+        emit(dict(phase="routes", check="dtoh_1.01M",
+                  host_route=_dtoh_bytes(data, out_dir, False),
+                  device_route=_dtoh_bytes(data, out_dir, True)))
+        # (g), (h) on the host-route model
+        line, counts = _optimization_check(host)
+        _add_counts(total, counts)
+        emit(dict(phase="routes", **line))
+        emit(dict(phase="routes", **_plotting_check(host, had_matplotlib, out_dir)))
+        del host
+        # (d) aggregated clustering through the one-bin H3
+        line, counts = _aggregated_routes(data, args.reps)
+        _add_counts(total, counts)
+        emit(dict(phase="routes", **line))
+        del data
+        torch.cuda.empty_cache()
+        # (i) index widths at 10.1M x 300
+        torch.cuda.reset_peak_memory_stats()
+        emit(dict(phase="routes", **_index_width_check()))
+        torch.cuda.empty_cache()
+        # (e) the big build
+        line, counts = _big_routes(args, smi)
+        _add_counts(total, counts)
+        emit(dict(phase="routes", **line))
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+    for name in ("assign_flux", "pair_assign"):
+        require(total.get(name, 0) > 0, f"kernel {name} never launched in the routes phase")
+    summary["launches_routes"] = total
+
+
 # --------------------------------------------------------------- configs
 
 
@@ -1600,6 +2379,9 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", default=None,
                     help="directory for the compiler log and the build traces")
+    ap.add_argument("--big-segments", type=int, default=100_000,
+                    help="segments per iteration of the routes phase's big "
+                         "build (a multiple of 8; 101 iterations)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     unknown = set(phases) - set(PHASES)
@@ -1652,6 +2434,8 @@ def main(argv=None):
     if "access" in phases:
         phase_access(args, summary, smi)
     summary.pop("bench_data", None)
+    if "routes" in phases:
+        phase_routes(args, summary, smi)
     if "configs" in phases:
         phase_configs(args, summary)
 
@@ -1659,6 +2443,7 @@ def main(argv=None):
     launches_analysis = summary.get("launches_analysis", {})
     launches_configs = summary.get("launches_configs", {})
     launches_access = summary.get("launches_access", {})
+    launches_routes = summary.get("launches_routes", {})
     kernels = []
     for name, info in KERNEL_INFO.items():
         k = summary.get(name, {})
@@ -1668,6 +2453,7 @@ def main(argv=None):
             launches_analysis=launches_analysis.get(name),
             launches_configs=launches_configs.get(name),
             launches_access=launches_access.get(name),
+            launches_routes=launches_routes.get(name),
             max_abs_err=k.get("max_abs_err"), ms=k.get("ms"),
             plain_ms=k.get("plain_ms"), bound_ms=k.get("bound_ms"),
             bound_by=k.get("bound_by"), library_ms=None, mm_ms=k.get("mm_ms"),

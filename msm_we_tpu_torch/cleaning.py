@@ -5,7 +5,12 @@ Counterpart of ``organize_flux_cleaning``, ``organize_stratified``,
 ``incremental_rediscretize``, ``assign_rows_subset`` and
 ``organize_aggregated_simple`` in ``msm_we_tpu/cleaning.py``. The rows a
 pass must re-score are assigned on the model's device (the H4-family
-kernel on CUDA); the per-pass flux recompute is the host f64 bincount.
+kernel on CUDA); the per-pass flux recompute is the host f64 bincount
+when the updated ids are in hand. On a ``device_pipeline`` build whose ids
+are still deferred, the bank surgery is the whole re-discretization: the
+flux recompute and the pcoord sort are free to take their device routes
+(``fluxmatrix.device_flux_lag0``, ``structures._get_cluster_centers_device``)
+and the dtrajs stay deferred until a host consumer asks for them.
 """
 from __future__ import annotations
 
@@ -16,13 +21,17 @@ from .binning import find_nearest_bin
 from .features import _feat_parent_rows
 
 
-def organize_flux_cleaning(model, remove_and_rediscretize, max_passes=10):
+def organize_flux_cleaning(model, remove_and_rediscretize, max_passes=10,
+                           host_flux=False):
     """Each pass: find strongly connected sets (with the artificial
     target->basis recycle edge), delete everything outside the largest via
     ``remove_and_rediscretize``, recompute the flux matrix at the new
     clustering, pcoord-sort and normalize. Repeats until the matrix is
     clean (re-discretization can itself disconnect states), at most
-    ``max_passes`` times."""
+    ``max_passes`` times. ``host_flux`` recomputes each pass's flux with
+    the host bincount even where the device route is open: after an
+    incremental update the ids are in hand, and the device route would only
+    assign every row again."""
     from .utils import find_connected_sets
 
     fmatrix_original = model.fluxMatrixRaw.copy()
@@ -56,7 +65,11 @@ def organize_flux_cleaning(model, remove_and_rediscretize, max_passes=10):
 
         pcoord_sort_indices = model.get_cluster_centers()
         model.pcoord_sort_indices = pcoord_sort_indices
-        model.get_fluxMatrix(*model._fluxMatrixParams)
+        model._flux_prefer_host = host_flux
+        try:
+            model.get_fluxMatrix(*model._fluxMatrixParams)
+        finally:
+            model._flux_prefer_host = False
         fluxMatrix = model.fluxMatrixRaw[
             np.ix_(pcoord_sort_indices, pcoord_sort_indices)
         ]
@@ -116,12 +129,24 @@ def organize_stratified(model, max_passes=10, incremental=True):
             strat.set_remap(
                 int(b), find_nearest_bin(model._bin_mapper, int(b), populated)
             )
-        if incremental:
+        if incremental and model._parent_idx is not None:
             incremental_rediscretize(model, strat, old_remap, old_global, old_total)
+        elif model.device_pipeline and model._parent_idx is None:
+            # Deferred ids: the bank surgery above is the whole
+            # re-discretization. The next flux recompute assigns against
+            # the updated bank, and a later host consumer materializes the
+            # dtrajs once, against the final bank (_ensure_discretized)
+            model.dtrajs = None
+            model.pair_dtrajs = None
         else:
             model.launch_discretization()
 
-    organize_flux_cleaning(model, remove_and_rediscretize, max_passes=max_passes)
+    organize_flux_cleaning(
+        model, remove_and_rediscretize, max_passes=max_passes,
+        # Only with the updated ids in hand; a deferred build stays free to
+        # take the device route in every pass
+        host_flux=incremental and model._parent_idx is not None,
+    )
     model.cluster_mapping = {x: x for x in range(model.n_clusters + 2)}
 
 
@@ -217,5 +242,8 @@ def organize_aggregated_simple(model, max_passes=10, incremental=True):
                 upd(model._child_idx, lambda r: feats["child"][r]),
             )
 
-    organize_flux_cleaning(model, remove_and_rediscretize, max_passes=max_passes)
+    organize_flux_cleaning(
+        model, remove_and_rediscretize, max_passes=max_passes,
+        host_flux=incremental,
+    )
     model.removed_clusters = []

@@ -7,7 +7,11 @@ build's later stages (discretization -> flux -> cleaning -> analysis) can
 run from the fitted state of another build, for example the JAX package's.
 ``tica_state_from_arrays`` installs a fitted TICA/VAMP transform and
 ``aggregated_state_from_arrays`` an aggregated k-means bank the same way.
-They take numpy arrays only.
+The installed stratified bank carries no dtrajs: it is the state a
+``defer_discretization=True`` clustering leaves, so the device flux route
+can run from it directly. ``optimized_mapper_from_arrays`` builds an
+:class:`~msm_we_tpu_torch.optimization.OptimizedBinMapper` from a bank and
+its mapping tables. They take numpy arrays only.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ __all__ = [
     "fitted_state_from_arrays",
     "tica_state_from_arrays",
     "aggregated_state_from_arrays",
+    "optimized_mapper_from_arrays",
 ]
 
 
@@ -32,6 +37,8 @@ def _drop_derived(model):
     model._raw_bins_cache = None
     model._pc_masks_cache = None
     model._dev_feats_cache = None
+    model._device_flux_row_cache = None
+    model._device_p1_cache = None
     model.dtrajs = model.pair_dtrajs = None
     model._parent_idx = model._child_idx = None
 
@@ -81,6 +88,25 @@ def fitted_state_from_arrays(model, *, pca_mean, pca_components,
     )
     model.ndim = components.shape[0]
 
+    strat = _bank_from_arrays(centers, counts, center_bin, valid, initialized,
+                              we_remap, seed, model.device)
+    if components.shape[0] != strat.d:
+        raise ValueError(
+            f"centers have {strat.d} features, the transform {components.shape[0]}")
+
+    model._bin_mapper = RectilinearBinMapper(bin_edges)
+    model._strat = strat
+    model.clusters = StratifiedClustersShim(model._bin_mapper, model, strat)
+    model.clustering_method = "stratified"
+    model.n_clusters = strat.n_bins * strat.k
+    # Features follow the transform: recompute on next use
+    _drop_derived(model)
+    return model
+
+
+def _bank_from_arrays(centers, counts, center_bin, valid, initialized,
+                      we_remap, seed, device):
+    """A :class:`StratifiedKmeans` holding the flat bank of the arrays."""
     centers = np.asarray(centers, np.float32)
     initialized = np.asarray(initialized, bool)
     n_bins = len(initialized)
@@ -91,22 +117,41 @@ def fitted_state_from_arrays(model, *, pca_mean, pca_components,
     center_bin = np.asarray(center_bin, np.int32)
     if not np.array_equal(center_bin, np.repeat(np.arange(n_bins, dtype=np.int32), k)):
         raise ValueError("the bank must hold each bin's k centers contiguously")
-    if components.shape[0] != d:
-        raise ValueError(f"centers have {d} features, the transform {components.shape[0]}")
-
-    strat = StratifiedKmeans(n_bins, k, d, seed=seed, device=model.device)
+    strat = StratifiedKmeans(n_bins, k, d, seed=seed, device=device)
     strat.centers = centers.copy()
     strat.counts = np.asarray(counts, np.float32).copy()
     strat.valid = np.asarray(valid, bool).copy()
     strat.initialized = initialized.copy()
     strat.we_remap = np.asarray(we_remap, np.int32).copy()
     strat._refresh_ids()
+    return strat
 
-    model._bin_mapper = RectilinearBinMapper(bin_edges)
-    model._strat = strat
-    model.clusters = StratifiedClustersShim(model._bin_mapper, model, strat)
-    model.clustering_method = "stratified"
-    model.n_clusters = n_bins * k
-    # Features follow the transform: recompute on next use
-    _drop_derived(model)
-    return model
+
+def optimized_mapper_from_arrays(*, centers, counts, center_bin, valid,
+                                 initialized, we_remap, bin_edges,
+                                 microstate_mapper, nbins,
+                                 n_original_pcoord_dims, basis_pcoord_bounds,
+                                 target_pcoord_bounds, cluster_on_pcoord=False,
+                                 seed=0, device="cuda"):
+    """An ``OptimizedBinMapper`` over a stratified bank given as arrays (the
+    layout of :func:`fitted_state_from_arrays`), its rectilinear base mapper
+    (``bin_edges``), the ``microstate_mapper`` table (a dict or an array
+    indexed by cluster id, basis and target last) and the basis/target
+    bounds. ``device`` is where the clusterer assigns."""
+    from .optimization import OptimizedBinMapper
+
+    strat = _bank_from_arrays(centers, counts, center_bin, valid, initialized,
+                              we_remap, seed, device)
+    base = RectilinearBinMapper(bin_edges)
+    if not isinstance(microstate_mapper, dict):
+        microstate_mapper = np.asarray(microstate_mapper)
+    return OptimizedBinMapper(
+        nbins=int(nbins),
+        n_original_pcoord_dims=int(n_original_pcoord_dims),
+        target_pcoord_bounds=np.asarray(target_pcoord_bounds, float),
+        basis_pcoord_bounds=np.asarray(basis_pcoord_bounds, float),
+        previous_binmapper=base,
+        microstate_mapper=microstate_mapper,
+        stratified_clusterer=StratifiedClustersShim(base, None, strat),
+        cluster_on_pcoord=cluster_on_pcoord,
+    )

@@ -1,17 +1,49 @@
-"""Flux-matrix estimation: the host float64 bincount route, at any lag.
+"""Flux-matrix estimation: the host float64 bincount route at any lag, the
+fused device route at lag 0, and the routing between them.
 
-Counterpart of ``get_flux_matrix`` and ``get_iter_flux_matrix`` in
-``msm_we_tpu/fluxmatrix.py``. The ids come from the device
-discretization; the (n+2)^2 accumulation is one f64 bincount on the host
-(WE weights span hundreds of decades). The fused device flux route
-(``device_flux_lag0``) is not ported yet (ROADMAP, queue 1: device flux
-and stats route).
+Counterpart of ``get_flux_matrix``, ``device_f64_weights_ok``,
+``device_flux_lag0`` and ``get_iter_flux_matrix`` in
+``msm_we_tpu/fluxmatrix.py``.
+
+Host route (the default): the ids come from the device discretization; the
+(n+2)^2 accumulation is one f64 bincount on the host (WE weights span
+hundreds of decades).
+
+Device route (``device_flux_lag0``, opt-in): one H3 launch
+(``ops.stratified_assign.assign_flux``) assigns the device-resident parent
+and child features, applies the flux-order overrides and scatters the f64
+weights into the flux matrix with f64 ``atomicAdd``; only the (n+2)^2
+matrix comes back. The card takes the place of the JAX package's (1, 1)
+mesh: the route is open when ``model.device_pipeline`` is set, and taken
+when ``model._force_device_flux`` is set or the ids are still deferred and
+the build has at least ``MSM_WE_TPU_DEVICE_FLUX_MIN_ROWS`` rows (default:
+never). ``MSM_WE_TPU_DEVICE_FLUX_F32=1`` accumulates in f32 instead. The
+atomics add in an order that changes between runs, so the device flux
+equals the host bincount to f64 rounding (bitwise for dyadic weights), not
+bit for bit.
+
+Left out on purpose: the JAX package's packed-sparse flux download
+(``build_sharded_step_packed*``, ``flux_pack_capacity``,
+``unpack_packed_flux``). It shrinks the matrix for a slow device-to-host
+link; here the dense (n+2)^2 f64 matrix is one small copy.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
+import torch
 
 from ._logging import log
+
+DEVICE_FLUX_MIN_ROWS_ENV = "MSM_WE_TPU_DEVICE_FLUX_MIN_ROWS"
+DEVICE_FLUX_F32_ENV = "MSM_WE_TPU_DEVICE_FLUX_F32"
+
+
+def _min_rows(env_name):
+    """Row count from which an opt-in device route is taken (default:
+    never)."""
+    return int(os.environ.get(env_name, str(10**18)))
 
 
 def get_flux_matrix(model, n_lag, first_iter=1, last_iter=None,
@@ -50,6 +82,30 @@ def get_flux_matrix(model, n_lag, first_iter=1, last_iter=None,
     model.errorCount = 0
 
     feats = model._featurize_all()
+
+    use_device_flux = (
+        n_lag == 0
+        and model.device_pipeline
+        and model.clusters is not None
+        and not getattr(model, "_flux_prefer_host", False)
+        and device_f64_weights_ok(model, feats["weights"])
+    )
+    if use_device_flux and not model._force_device_flux:
+        # With the ids in hand (or cheap to get: one discretization whose
+        # ids every later stage reuses) the host bincount needs no second
+        # assignment of every row. The device route is for deferred ids on
+        # builds of at least DEVICE_FLUX_MIN_ROWS rows (default: never).
+        big = int(feats["offsets"][-1]) >= _min_rows(DEVICE_FLUX_MIN_ROWS_ENV)
+        if model._parent_idx is not None or not big:
+            use_device_flux = False
+    if use_device_flux:
+        model.fluxMatrixRaw = device_flux_lag0(model, iters_to_use) / len(
+            iters_to_use
+        )
+        return
+
+    # Every host-route build (lag > 0, the default, a deferred clustering)
+    # needs the stored ids
     model._ensure_discretized()
     n_states = model.n_clusters + 2
     masks = model._pc_masks()
@@ -64,6 +120,142 @@ def get_flux_matrix(model, n_lag, first_iter=1, last_iter=None,
         flat, weights=weights, minlength=n_states * n_states
     ).reshape(n_states, n_states)
     model.fluxMatrixRaw = fm / len(iters_to_use)
+
+
+def device_f64_weights_ok(model, weights):
+    """Whether the model's device can accumulate these WE weights in genuine
+    f64: always, on CUDA and on the CPU. Both have native f64 with its full
+    exponent range (and CUDA an f64 ``atomicAdd``), so weights down to
+    1e-300 neither flush to zero nor vanish beside O(1) cellmates. The JAX
+    package routes weights outside f32's exponent range to the host because
+    its accelerator emulates f64; nothing here needs that guard, and the
+    function is kept so that the routing reads like its counterpart."""
+    del model, weights
+    return True
+
+
+def _remap_gather(raw, remap):
+    """Remapped WE bins on the device from the cached raw bins and the
+    (small) current ``we_remap``; rows of bin -1 stay -1."""
+    return torch.where(
+        raw >= 0, remap[raw.clamp(min=0).long()], torch.full_like(raw, -1)
+    ).to(torch.int32)
+
+
+def _flux_rows(model, feats, masks, iters_to_use, f32_tier):
+    """The call-invariant row tensors of :func:`device_flux_lag0` on the
+    model's device, cached on the model per (feature set, iteration window,
+    tier): the basis/target masks, the weights with the iteration selection
+    folded in (``w * isin(iteration, iters)``; adding 0.0 is exact, so the
+    feature arrays need no gather), and for stratified clustering the raw
+    WE bins. Cleaning recomputes the flux once a pass with the same
+    window."""
+    key = (tuple(iters_to_use), f32_tier)
+    cache = getattr(model, "_device_flux_row_cache", None)
+    if cache is not None and cache[0] is feats and cache[1] == key:
+        return cache[2]
+    dev = model.device
+    sel = np.isin(feats["iteration"], list(iters_to_use))
+    w = np.where(sel, feats["weights"], 0.0).astype(
+        np.float32 if f32_tier else np.float64
+    )
+    rows = {"w": torch.as_tensor(w, device=dev)}
+    for name in ("basis_p", "basis_c", "target_p", "target_c"):
+        rows[name] = torch.as_tensor(masks[name], device=dev)
+    if model._strat is not None:
+        raw_p, raw_c = model._raw_we_bins()
+        rows["raw_p"] = torch.as_tensor(raw_p.astype(np.int32), device=dev)
+        rows["raw_c"] = torch.as_tensor(raw_c.astype(np.int32), device=dev)
+    model._device_flux_row_cache = (feats, key, rows)
+    return rows
+
+
+def _flux_launch_args(model, iters_to_use):
+    """``(args, target_p)`` of the H3 launch of :func:`device_flux_lag0`, on
+    the model's device: the feature rows, the remapped WE bins (gathered on
+    the device from the cached raw bins and the current ``we_remap``), the
+    weights and masks of :func:`_flux_rows`, the compact bank and the
+    nominal state count. Aggregated clustering is one implicit bin holding
+    every center and has no ``target_p``."""
+    feats = model._featurize_all()
+    strat = model._strat
+    dev = model.device
+    f32_tier = os.environ.get(DEVICE_FLUX_F32_ENV, "") == "1"
+    fp_dev, fc_dev = model._device_row_feats()
+    rows = _flux_rows(model, feats, model._pc_masks(), iters_to_use, f32_tier)
+    if strat is not None:
+        bank = strat.compact_bank_device()
+        remap = torch.as_tensor(strat.we_remap.astype(np.int32), device=dev)
+        pbins = _remap_gather(rows["raw_p"], remap)
+        cbins = _remap_gather(rows["raw_c"], remap)
+        target_p = rows["target_p"]
+    else:
+        centers = np.asarray(model.clusters.cluster_centers_, np.float32)
+        bank = (
+            torch.as_tensor(centers, device=dev).contiguous(),
+            torch.zeros(len(centers), dtype=torch.int32, device=dev),
+            torch.ones(len(centers), dtype=torch.bool, device=dev),
+        )
+        pbins = cbins = torch.zeros(len(rows["w"]), dtype=torch.int32, device=dev)
+        target_p = None
+    args = (fp_dev, fc_dev, pbins, cbins, rows["w"], rows["basis_p"],
+            rows["basis_c"], rows["target_c"], *bank, model.n_clusters + 2)
+    return args, target_p
+
+
+def device_flux_lag0(model, iters_to_use):
+    """Fused lag-0 flux matrix on the model's device: one H3 launch
+    (``assign_flux``) over the device-resident features assigns parent and
+    child rows against the compact bank, applies the flux-order overrides
+    and scatters the weights. Returns the (n+2, n+2) float64 sum over the
+    window, not yet divided by the number of iterations.
+
+    Stratified clustering scores each row against its (remapped) WE bin's
+    centers and sends target-region parents to the target state; aggregated
+    clustering is one bin holding every center, and leaves such parents at
+    their cluster (the reference's aggregated path). The weights are f64,
+    or f32 with ``MSM_WE_TPU_DEVICE_FLUX_F32=1`` (the accumulator has the
+    weights' dtype).
+
+    With the ids still deferred and fewer rows than
+    ``MSM_WE_TPU_DEVICE_FLUX_MIN_ROWS`` the same launch also mints the
+    build's dtrajs: H3's ids carry the flux-order overrides at the nominal
+    numbering, so the rows inside a region are rewritten in predict order
+    (target wins) at the bank's live numbering, as ``pair_discretize``
+    numbers them. From that row count on the ids stay on the device and the
+    dtrajs deferred: a later host consumer materializes them once, against
+    the final bank.
+    """
+    from .discretization import _check_live_centers
+    from .ops.stratified_assign import assign_flux
+    from .step import _apply_overrides
+
+    strat = model._strat
+    n_states = model.n_clusters + 2
+    args, target_p = _flux_launch_args(model, iters_to_use)
+    want_ids = (
+        model._parent_idx is None
+        and strat is not None
+        and len(args[4]) < _min_rows(DEVICE_FLUX_MIN_ROWS_ENV)
+    )
+    if want_ids:
+        # Same junk-id guard as pair_discretize: this launch is about to
+        # mint the build's dtrajs
+        raw_p, raw_c = model._raw_we_bins()
+        _check_live_centers(strat, strat.we_remap[raw_p], strat.we_remap[raw_c])
+    pidx, cidx, fm = assign_flux(*args, target_p=target_p)
+    if want_ids:
+        basis_p, basis_c, target_c = args[5:8]
+        pid, cid = _apply_overrides(
+            pidx, cidx, basis_p, basis_c, target_c,
+            strat.n_total_clusters + 2, target_p=target_p, predict_order=True,
+        )
+        model._scored_on_host = False
+        model._store_dtrajs(pid.cpu().numpy(), cid.cpu().numpy())
+    fm = fm.to(torch.float64).cpu().numpy()
+    if fm.shape != (n_states, n_states):
+        raise RuntimeError(f"device flux has shape {fm.shape}")
+    return fm
 
 
 def _lag0_ids(model, feats, masks, iters_to_use):

@@ -19,11 +19,19 @@ CUDA the discretization, the streaming clustering scan, the device-family
 seeding, the aggregated k-means and the cleaning re-assignments launch the
 hand-written kernels of ``ops/stratified_assign.py``; with the CPU they
 run the plain versions.
-``device_pipeline`` picks the discretization route only: the pair route
+``device_pipeline`` picks the discretization route: the pair route
 (``True``, parent and child rows in one pair launch) or the predict route
 (``False``, the default of ``build_analyze_model``: the 2N concatenated
-rows through ``StratifiedKmeans.predict``). The analysis tail stays in
-host float64.
+rows through ``StratifiedKmeans.predict``). Where the JAX package asks
+whether a mesh is enabled, the port asks ``device_pipeline``: with it a
+stratified build without cross-validation defers its discretization to the
+flux stage, and the opt-in device routes open (the fused H3 flux,
+``fluxmatrix.device_flux_lag0``, and the device cluster statistics,
+``structures._get_cluster_centers_device``; switched on by
+``MSM_WE_TPU_DEVICE_FLUX_MIN_ROWS``, ``MSM_WE_TPU_DEVICE_STATS_MIN_ROWS``
+or ``_force_device_flux``). With the knobs unset a build materializes its
+ids once and sums the flux on the host. The analysis tail stays in host
+float64.
 
 The data come from a list of west.h5 paths, read by
 :class:`~msm_we_tpu_torch.data.WEDataset` (this needs h5py), or in memory as
@@ -165,6 +173,11 @@ class modelWE:
     class BlockValidationError(Exception):
         pass
 
+    # Testing/diagnostic switch: take the fused device flux route
+    # (fluxmatrix.device_flux_lag0) wherever it is open, whatever the row
+    # count and whether or not the ids are stored
+    _force_device_flux = False
+
     def __init__(self, device="cuda"):
         self.device = as_device(device)
         # The discretization route: pair launches (True) or the predict
@@ -206,6 +219,11 @@ class modelWE:
         self.indBasis = None
         self.indTargets = None
         self.nBins = None
+
+        self.q = None
+        self.Jq = None
+        self.J = None
+        self.fit_parameters = {}
 
         self.targetRMSD_centers = None
         self.targetRMSD_minmax = None
@@ -305,6 +323,8 @@ class modelWE:
         self._raw_bins_cache = None
         self._pc_masks_cache = None
         self._dev_feats_cache = None
+        self._device_flux_row_cache = None
+        self._device_p1_cache = None
         self._strat = None
         self._bin_mapper = None
         self._fluxMatrixParams = None
@@ -344,6 +364,23 @@ class modelWE:
         self._target_pcoord_bounds = self._check_bounds(bounds)
         self.target_bin_centers = self._bin_centers_of_bounds(self._target_pcoord_bounds)
         self._invalidate_pcoord_caches()
+
+    # Deprecated 1-D aliases (reference msm_we.py:279-298, 365-387)
+    @property
+    def WEbasisp1_bounds(self):
+        return self.basis_pcoord_bounds
+
+    @WEbasisp1_bounds.setter
+    def WEbasisp1_bounds(self, bounds):
+        self.basis_pcoord_bounds = bounds
+
+    @property
+    def WEtargetp1_bounds(self):
+        return self.target_pcoord_bounds
+
+    @WEtargetp1_bounds.setter
+    def WEtargetp1_bounds(self, bounds):
+        self.target_pcoord_bounds = bounds
 
     def _check_bounds(self, bounds):
         bounds = np.array(bounds, dtype=float)
@@ -766,7 +803,8 @@ class modelWE:
                            first_cluster_iter=None, use_ray=True,
                            bin_iteration=2, iters_to_use=None,
                            user_bin_mapper=None, progress_bar=None,
-                           scan_small_batches=False, **_cluster_args):
+                           scan_small_batches=False,
+                           defer_discretization=False, **_cluster_args):
         """Per-WE-bin stratified clustering (reference ``_clustering.py:525-918``).
 
         Accumulates iterations until every seen WE bin has >= n_clusters
@@ -775,6 +813,11 @@ class modelWE:
         then discretizes every row. ``scan_small_batches=True`` runs every
         non-seeding fill batch through the device scan (the device numerics
         family) instead of host numpy updates for small batches.
+        ``defer_discretization=True`` (with ``device_pipeline`` only) skips
+        the final discretization: the next ``get_fluxMatrix(0)`` or any
+        other dtrajs consumer materializes the ids
+        (``_ensure_discretized``), or the device flux route runs without
+        them.
         """
         bin_mapper = user_bin_mapper
         if bin_mapper is None:
@@ -816,6 +859,15 @@ class modelWE:
         # The nominal total (reference ``_clustering.py:742``); never-visited
         # clusters are cleaned away in organize_fluxMatrix
         self.n_clusters = n_clusters * bin_mapper.nbins
+        if defer_discretization and self.device_pipeline:
+            # Clear any earlier clustering's ids: the deferral guards key on
+            # ``_parent_idx is None``, and stale ids in the old numbering
+            # would be read as current
+            self.dtrajs = None
+            self.pair_dtrajs = None
+            self._parent_idx = None
+            self._child_idx = None
+            return
         self.launch_discretization()
 
     def _load_bin_mapper_from_h5(self, bin_iteration):
@@ -849,15 +901,25 @@ class modelWE:
             return self._discretize_all_aggregated()
         return _discretization.launch_discretization(self)
 
+    def launch_ray_discretization(self, progress_bar=None):
+        """Compat alias: discretization is one batched device call."""
+        return self.launch_discretization(progress_bar=progress_bar)
+
     def _ensure_discretized(self):
-        """Discretize if clustering left no dtrajs (every dtrajs consumer
-        calls this)."""
+        """Materialize the dtrajs if a ``defer_discretization=True``
+        clustering (or a deferred cleaning) left them pending; every dtrajs
+        consumer calls this."""
         if self._parent_idx is None and self.clusters is not None:
             self.launch_discretization()
 
     def _invalidate_pcoord_caches(self):
+        """Drop the caches derived from the pcoords or the bounds: WE bins,
+        basis/target masks, and the device tensors made from them (the flux
+        row cache holds the masks, the p1 cache the child pcoords)."""
         self._raw_bins_cache = None
         self._pc_masks_cache = None
+        self._device_flux_row_cache = None
+        self._device_p1_cache = None
 
     def _raw_we_bins(self):
         """Un-remapped WE bin of every segment's parent/child pcoord."""
@@ -890,6 +952,16 @@ class modelWE:
             iters_to_use=iters_to_use,
         )
 
+    def _device_f64_weights_ok(self, weights):
+        """Whether the device accumulates these weights in genuine f64
+        (engine: :func:`fluxmatrix.device_f64_weights_ok`; always true)."""
+        return _fluxmatrix.device_f64_weights_ok(self, weights)
+
+    def _device_flux_lag0(self, iters_to_use):
+        """Fused device flux matrix, one H3 launch (engine:
+        :func:`fluxmatrix.device_flux_lag0`)."""
+        return _fluxmatrix.device_flux_lag0(self, iters_to_use)
+
     def get_iter_fluxMatrix(self, n_iter):
         """Single-iteration flux matrix (engine:
         :func:`fluxmatrix.get_iter_flux_matrix`; reference
@@ -902,12 +974,33 @@ class modelWE:
         if args:
             log.warning(f"organize_fluxMatrix ignoring unknown options {sorted(args)}")
         if self.clustering_method == "aggregated":
-            return _cleaning.organize_aggregated_simple(
-                self, max_passes=max_passes, incremental=incremental
+            return self.organize_aggregated_simple(
+                max_passes=max_passes, incremental=incremental
             )
+        return self.organize_stratified(
+            max_passes=max_passes, incremental=incremental
+        )
+
+    def organize_stratified(self, use_ray=False, progress_bar=None,
+                            max_passes=10, incremental=True):
+        """Stratified cleaning (engine: :func:`cleaning.organize_stratified`;
+        reference ``_clustering.py:920-1142``)."""
         return _cleaning.organize_stratified(
             self, max_passes=max_passes, incremental=incremental
         )
+
+    def organize_aggregated_simple(self, max_passes=10, incremental=True):
+        """Aggregate-path cleaning (engine:
+        :func:`cleaning.organize_aggregated_simple`)."""
+        return _cleaning.organize_aggregated_simple(
+            self, max_passes=max_passes, incremental=incremental
+        )
+
+    def organize_aggregated(self, use_ray=False, **args):
+        """The reference's ``organize_aggregated`` is deprecated and raises
+        (``_fluxmatrix.py:452-454``); this delegates to the working
+        SCC-based equivalent."""
+        return self.organize_aggregated_simple()
 
     # ------------------------------------------------------- cluster centers
     def get_cluster_centers(self):
@@ -1303,11 +1396,19 @@ class modelWE:
                 self.dimReduce(**step_kwargs.get("dimReduce", {}))
                 timer.set_note(f"method={self.dimReduceMethod}, ndim={self.ndim}")
             with timer.stage("Clustering"):
+                cluster_kwargs = dict(step_kwargs.get("clustering", {}))
+                if (self.device_pipeline and stratified
+                        and cross_validation_groups == 0):
+                    # The flux stage materializes the ids (or its device
+                    # route runs without them). With validation on,
+                    # post_cluster_model must snapshot materialized dtrajs,
+                    # so that build discretizes here.
+                    cluster_kwargs.setdefault("defer_discretization", True)
                 self.cluster_coordinates(
                     n_clusters=n_clusters, streaming=streaming,
                     stratified=stratified,
                     store_validation_model=cross_validation_groups > 0,
-                    **step_kwargs.get("clustering", {}),
+                    **cluster_kwargs,
                 )
         finally:
             self._dataset.drop_block_cache()
@@ -1355,12 +1456,13 @@ class modelWE:
             self._dataset.close()
 
     # ---------------------------------------------------------- checkpointing
-    _DEVICE_CACHES = ("_dev_feats_cache", "_pc_masks_cache")
+    _DEVICE_CACHES = ("_dev_feats_cache", "_pc_masks_cache",
+                      "_device_flux_row_cache", "_device_p1_cache")
 
     def _state(self):
         """The instance state without the caches derived from it (device
-        copies of the features, basis/target masks); they are rebuilt on
-        demand."""
+        copies of the features, basis/target masks, the device flux route's
+        row tensors and child pcoords); they are rebuilt on demand."""
         state = self.__dict__.copy()
         for key in self._DEVICE_CACHES:
             state[key] = None
@@ -1436,6 +1538,149 @@ class modelWE:
             model._features = None  # cached features refer to the old files
             model._raw_bins_cache = None
         return model.to(device)
+
+    # -------------------------------------------------------------- plotting
+    def plot_flux(self, *args, **kwargs):
+        from . import plotting
+
+        return plotting.plot_flux(self, *args, **kwargs)
+
+    def plot_flux_committor(self, *args, **kwargs):
+        from . import plotting
+
+        return plotting.plot_flux_committor(self, *args, **kwargs)
+
+    def plot_flux_committor_pcoordcolor(self, *args, **kwargs):
+        from . import plotting
+
+        return plotting.plot_flux_committor_pcoordcolor(self, *args, **kwargs)
+
+    def plot_committor(self, *args, **kwargs):
+        from . import plotting
+
+        return plotting.plot_committor(self, *args, **kwargs)
+
+    def get_coarse_flux_profile(self, *args, **kwargs):
+        from . import plotting
+
+        return plotting.get_coarse_flux_profile(self, *args, **kwargs)
+
+    def plot_coarse_flux_profile(self, *args, **kwargs):
+        from . import plotting
+
+        return plotting.plot_coarse_flux_profile(self, *args, **kwargs)
+
+    def draw_basis_target_boundaries(self, ax, pcoord_to_use=0):
+        from . import plotting
+
+        return plotting.draw_basis_target_boundaries(self, ax, pcoord_to_use)
+
+    def plot_implied_timescales(self, *args, **kwargs):
+        from . import plotting
+
+        return plotting.plot_implied_timescales(self, *args, **kwargs)
+
+    def plot_ck_test(self, *args, **kwargs):
+        from . import plotting
+
+        return plotting.plot_ck_test(self, *args, **kwargs)
+
+    def check_display_overcorrection_warning(self, ax):
+        from . import plotting
+
+        return plotting._check_display_overcorrection_warning(self, ax)
+
+    @staticmethod
+    def print_pseudocommittor_warning():
+        log.info(
+            "Note: for steady-state WE data this is a 'pseudocommittor', not "
+            "a true committor, as it comes from a one-way ensemble."
+        )
+
+    # ---------------------------------------------- reference-API compat shims
+    @staticmethod
+    def find_nearest_bin(bin_mapper, bin_idx, filled_bins):
+        """Reference ``_clustering.py:1331-1396``; delegates to binning."""
+        return find_nearest_bin(bin_mapper, bin_idx, filled_bins)
+
+    @staticmethod
+    def check_connect_ray():
+        """No-op: the reference's Ray fan-out is one batched call on the
+        model's device here."""
+        log.debug("Ray not required: the work runs as batched calls on one device.")
+
+    def progress_disable(self):
+        pass
+
+    def progress_enable(self):
+        pass
+
+    def collect_iter_coordinates(self, **kwargs):
+        """Augmenting west.h5 files with segment coordinates needs mdtraj
+        and the collection script, which the port does not cover."""
+        raise _not_ported("collect_iter_coordinates", "plugins and extended.py")
+
+    def enable_mesh(self, mesh=None):
+        """The port runs on one device; a device mesh is not covered."""
+        raise _not_ported("enable_mesh (a device mesh)", "plugins and extended.py")
+
+    # Manual live-table helpers (reference msm_we.py:529-586). The display
+    # of build_analyze_model is driven by StageTimer; these statics keep the
+    # reference's hand-driven table API for users who compose their own
+    # pipelines.
+    _TABLE_STEPS = (
+        "Ray initialization",
+        "Model initialization",
+        "Loading iterations",
+        "Loading coordinates",
+        "Computing dimensionality reduction",
+        "Clustering",
+        "Flux matrix",
+        "Cleaning",
+        "Transition matrix",
+        "Steady-state distribution",
+        "Steady-state target flux",
+        "Cross-validation",
+    )
+
+    @staticmethod
+    def new_table():
+        """A rich progress table with one row per pipeline step (reference
+        ``msm_we.py:561-586``)."""
+        from rich.table import Table
+
+        table = Table(title="haMSM Progress")
+        for column in ("Status", "Step", "Notes"):
+            table.add_column(column)
+        for step in modelWE._TABLE_STEPS:
+            table.add_row(" [ ]", step, "")
+        return table
+
+    @staticmethod
+    def set_note(table, row, text):
+        """Set the Notes cell of a step row (reference ``msm_we.py:558-560``)."""
+        table.columns[2]._cells[row] = text
+
+    @staticmethod
+    def do_step(table, row, step, args=(), kwargs=None, in_subprocess=False):
+        """Run one pipeline step, updating its table row to running, done
+        or failed (reference ``msm_we.py:529-556``). ``in_subprocess`` is
+        accepted for API parity and ignored."""
+        del in_subprocess
+        step_text = table.columns[1]._cells[row]
+        status, name = table.columns[0], table.columns[1]
+        status._cells[row] = "[bold black][ [bold yellow]* [bold black]]"
+        name._cells[row] = f"[bold black]{step_text}"
+        try:
+            result = step(*args, **(kwargs or {}))
+        except Exception as e:
+            status._cells[row] = "[bold black] [[bold red]x[bold black]]"
+            name._cells[row] = f"[black]{step_text}"
+            table.columns[2]._cells[row] = f"{getattr(e, 'message', repr(e))}"
+            raise
+        status._cells[row] = "[bold black] [[bold green]\u2713[bold black]]"
+        name._cells[row] = f"[black]{step_text}"
+        return result
 
 
 # The reference defines BlockValidationError at module scope

@@ -4,7 +4,8 @@ Counterpart of the single-device part of ``msm_we_tpu/parallel/sharded.py``
 (``_raw_pair_assign``, ``_apply_overrides``, ``_assign_overridden``,
 ``_discretize_and_flux``, ``_scatter_flux``, ``fused_step_single``,
 ``steady_state_from_flux``, and the one-device forms of
-``build_sharded_pair_assign`` / ``build_sharded_single_assign``). One
+``build_sharded_pair_assign`` / ``build_sharded_single_assign`` /
+``build_sharded_cluster_stats``). One
 device replaces the ('data', 'model') mesh, so there is no argmin combine
 and no psum. The assignment and flux go through the kernels of
 ``ops/stratified_assign.py`` on CUDA tensors and their plain versions on
@@ -26,6 +27,7 @@ __all__ = [
     "steady_state_from_flux",
     "pair_assign_predict",
     "single_assign_predict",
+    "cluster_stats",
 ]
 
 
@@ -119,6 +121,46 @@ def single_assign_predict(fc, cbins, basis_c, target_c, centers, center_bin,
         None, fc, None, cbins, centers, center_bin, valid, n_states=n_states,
         basis_c=basis_c, target_c=target_c, order="predict",
     )
+
+
+def cluster_stats(cid, p1, n_live, k_max):
+    """One-device ``build_sharded_cluster_stats``: per-cluster child-pcoord
+    count, sum, min and max from device-resident ids ``cid`` (N,) and
+    pcoords ``p1`` (N, ndim) f32, without bringing the ids to the host.
+
+    Returns ``(counts int32, sums f64, vmin f32, vmax f32)``, each
+    ``(k_max + 1, ndim)``. ``k_max`` is the nominal bank width; rows whose
+    id is outside ``[0, n_live)`` (basis and target overrides included) land
+    in the trash row ``k_max``. NaN pcoords are excluded per dimension, as
+    the host route's ``good`` mask does. Untouched cells keep count 0, sum
+    0, min +inf and max -inf. Plain torch ops (``index_add_``,
+    ``scatter_reduce_``): the JAX package computes these with XLA scatters,
+    not a Pallas kernel.
+
+    The sums are accumulated in f64, which the card adds natively (the JAX
+    package sums in f32): one f32 accumulator a cluster over millions of
+    rows loses the digits the pcoord sort needs (a partial sum of 5e5 has
+    an f32 spacing of 0.03).
+    """
+    dev = p1.device
+    ndim = p1.shape[1]
+    cid = cid.long()
+    in_range = (cid >= 0) & (cid < n_live)
+    bucket = torch.where(in_range, cid, k_max)
+    good = ~torch.isnan(p1) & in_range[:, None]
+    shape = (k_max + 1, ndim)
+    counts = torch.zeros(shape, dtype=torch.int32, device=dev).index_add_(
+        0, bucket, good.to(torch.int32)
+    )
+    sums = torch.zeros(shape, dtype=torch.float64, device=dev).index_add_(
+        0, bucket, torch.where(good, p1, 0.0).double()
+    )
+    index = bucket[:, None].expand(-1, ndim)
+    vmin = torch.full(shape, float("inf"), dtype=torch.float32, device=dev)
+    vmin.scatter_reduce_(0, index, torch.where(good, p1, float("inf")), "amin")
+    vmax = torch.full(shape, float("-inf"), dtype=torch.float32, device=dev)
+    vmax.scatter_reduce_(0, index, torch.where(good, p1, float("-inf")), "amax")
+    return counts, sums, vmin, vmax
 
 
 def steady_state_from_flux(fm, basis_mask, target_mask, n_iters=512,

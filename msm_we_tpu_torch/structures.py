@@ -1,15 +1,38 @@
-"""Cluster-center statistics and cluster-structure export (host route).
+"""Cluster-center statistics and cluster-structure export.
 
-Counterpart of ``get_cluster_centers`` and ``update_cluster_structures``
-in ``msm_we_tpu/structures.py`` (reference ``_clustering.py:1528-1599,
-1398-1526``): grouped array passes (bincount, sort + ``ufunc.reduceat``)
-over the host dtrajs, in float64.
+Counterpart of ``get_cluster_centers`` (host and device routes) and
+``update_cluster_structures`` in ``msm_we_tpu/structures.py`` (reference
+``_clustering.py:1528-1599, 1398-1526``). The host route is grouped array
+passes (bincount, sort + ``ufunc.reduceat``) over the host dtrajs, in
+float64. The device route (opt-in, for builds whose ids are still
+deferred) assigns the child rows on the model's device and reduces the
+child pcoords per cluster there (``step.cluster_stats``, f64 sums of the
+f32 pcoords); only four small tables come back.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
+import torch
 
 from ._logging import log
+
+#: Row count from which a ``device_pipeline`` build with still-deferred ids
+#: computes the per-cluster pcoord statistics on the device instead of
+#: materializing host dtrajs (default: never)
+DEVICE_STATS_MIN_ROWS_ENV = "MSM_WE_TPU_DEVICE_STATS_MIN_ROWS"
+
+
+def _device_stats_route(model):
+    if not model.device_pipeline:
+        return False
+    if model._child_idx is not None:
+        return False  # ids already on the host: the f64 host path is exact
+    if model._strat is None:
+        return False
+    n_rows = int(model._featurize_all()["offsets"][-1])
+    return n_rows >= int(os.environ.get(DEVICE_STATS_MIN_ROWS_ENV, str(10**18)))
 
 
 def get_cluster_centers(model):
@@ -20,13 +43,20 @@ def get_cluster_centers(model):
     the last two positions -- the property that makes
     ``indBasis = [n_clusters]`` correct after sorting.
 
-    Host float64 route (the device stats route is not ported yet).
+    A ``device_pipeline`` build with deferred ids and at least
+    ``MSM_WE_TPU_DEVICE_STATS_MIN_ROWS`` rows takes the device route
+    (:func:`_get_cluster_centers_device`); a failure there surfaces, it is
+    not retried on the host.
     """
+    if _device_stats_route(model):
+        return _get_cluster_centers_device(model)
+
     n = model.n_clusters
     centers = np.full((n + 2, model.pcoord_ndim), np.nan)
     crange = np.full((n + 2, model.pcoord_ndim, 2), np.nan)
 
     feats = model._featurize_all()
+    model._ensure_discretized()
     child_idx = model._child_idx
     p1 = feats["pcoord1"]
 
@@ -71,6 +101,61 @@ def get_cluster_centers(model):
     return order
 
 
+def _device_p1(model):
+    """The child pcoords as an (N, ndim) f32 tensor on the model's device,
+    cached per feature set."""
+    feats = model._featurize_all()
+    cache = getattr(model, "_device_p1_cache", None)
+    if cache is not None and cache[0] is feats:
+        return cache[1]
+    p1 = np.asarray(feats["pcoord1"], dtype=np.float32)
+    if p1.ndim == 1:
+        p1 = p1[:, None]
+    dev = torch.as_tensor(np.ascontiguousarray(p1), device=model.device)
+    model._device_p1_cache = (feats, dev)
+    return dev
+
+
+def _get_cluster_centers_device(model):
+    """Device route of :func:`get_cluster_centers`: the child ids
+    (``discretization.device_child_assign``, one H4 launch on CUDA) and the
+    child pcoords stay on the device; four ``(k_max + 1, ndim)`` tables come
+    back.
+
+    Same semantics as the host route (NaN pcoords excluded per dimension,
+    NaN centers for empty, basis and target rows, stable pcoord argsort)
+    with f64 sums of f32 pcoords: the means agree with the host f64 ones to
+    the f32 rounding of each pcoord, so two clusters whose means lie closer
+    than that may swap places in the sort."""
+    from .discretization import device_child_assign
+    from .step import cluster_stats
+
+    strat = model._strat
+    n = model.n_clusters
+    ndim = int(model.pcoord_ndim)
+    k_max = int(strat.n_bins * strat.k)
+
+    cid_dev = device_child_assign(model, strat)
+    stats = cluster_stats(cid_dev, _device_p1(model), n, k_max)
+    counts, sums, vmin, vmax = (
+        t[:n].cpu().numpy().astype(np.float64) for t in stats
+    )
+
+    centers = np.full((n + 2, ndim), np.nan)
+    crange = np.full((n + 2, ndim, 2), np.nan)
+    populated = counts > 0
+    centers[:n][populated] = sums[populated] / counts[populated]
+    crange[:n, :, 0][populated] = vmin[populated]
+    crange[:n, :, 1][populated] = vmax[populated]
+    for cluster in np.flatnonzero(~populated.any(axis=1)):
+        log.warning(f"No trajectories in cluster {cluster}!")
+
+    order = np.argsort(centers[:, 0], kind="stable")
+    model.targetRMSD_centers = centers[order]
+    model.targetRMSD_minmax = crange[order]
+    return order
+
+
 def update_cluster_structures(model, build_pcoord_cache=False):
     """Map each cluster to its member structures, weights, and provenance
     (reference ``_clustering.py:1398-1526``).
@@ -81,6 +166,7 @@ def update_cluster_structures(model, build_pcoord_cache=False):
     segments (the restart plugin calls it on every restart).
     """
     assert model.clusters is not None, "Clusters have not been computed!"
+    model._ensure_discretized()
 
     coords_parts, weights_parts, dtraj_parts = [], [], []
     iter_parts, segidx_parts, westidx_parts, pcoord_parts = [], [], [], []

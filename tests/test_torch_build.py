@@ -7,6 +7,7 @@ the configuration of ``bench.py`` (PCA, stratified, streaming, device
 pipeline, 12 rectilinear WE bins, basis [9, 10], target [0, 1]) cut to
 12 iterations x 32 segments and 3 clusters per bin.
 """
+import copy
 import os
 import subprocess
 import sys
@@ -341,6 +342,7 @@ def test_port_imports_no_jax_h5py_or_networkx():
                                       generate_we_arrays, modelWE)
         import msm_we_tpu_torch.entry, msm_we_tpu_torch.convert
         import msm_we_tpu_torch.data.westh5, msm_we_tpu_torch.tracing
+        import msm_we_tpu_torch.optimization, msm_we_tpu_torch.plotting
         from msm_we_tpu_torch.msm import MatrixFPT, NonMarkovModel
         m = modelWE(device="cpu")
         m.build_analyze_model(
@@ -363,7 +365,13 @@ def test_port_imports_no_jax_h5py_or_networkx():
         nm = NonMarkovModel([traj], stateA=[0], stateB=[2], lag_time=2)
         assert abs(nm.populations().sum() - 1.0) < 1e-12 and nm.mfpts()["mfptAB"] > 0
         assert nm.empirical_weighted_FS()[2] > 0
-        loaded = [n for n in ("jax", "msm_we_tpu", "h5py", "networkx", "rich")
+        m.get_coarse_flux_profile()
+        disc, var = msm_we_tpu_torch.optimization.solve_discrepancy(
+            m.Tmatrix, np.squeeze(m.pSS), m.indTargets)
+        msm_we_tpu_torch.optimization.get_uniform_mfpt_bins(
+            var, disc, np.squeeze(m.pSS), 5)
+        loaded = [n for n in ("jax", "msm_we_tpu", "h5py", "networkx", "rich",
+                              "matplotlib", "sklearn")
                   if n in sys.modules]
         print("LOADED", loaded)
         assert not loaded, loaded
@@ -373,6 +381,86 @@ def test_port_imports_no_jax_h5py_or_networkx():
                          text=True, env=env, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "LOADED []" in res.stdout
+
+
+@pytest.mark.parametrize("method", [
+    "bounds_aliases", "organize_stratified", "organize_aggregated",
+    "launch_ray_discretization", "no_ops", "find_nearest_bin", "table",
+    "not_ported",
+])
+def test_compat_methods_match_jax(west_h5, arrays, method, caplog):
+    """The reference-API compat methods of ``modelWE`` behave as the JAX
+    package's do on the same build."""
+    if method == "bounds_aliases":
+        j, m = JaxModelWE(), modelWE(device="cpu")
+        for model in (j, m):
+            model.pcoord_ndim = 1
+            model.WEbasisp1_bounds = [[9.0, 10.0]]
+            model.WEtargetp1_bounds = [0.0, 1.0]  # 1-D form is converted
+        np.testing.assert_array_equal(m.WEbasisp1_bounds, j.WEbasisp1_bounds)
+        np.testing.assert_array_equal(m.WEtargetp1_bounds, j.target_pcoord_bounds)
+        assert m.WEtargetp1_bounds is m.target_pcoord_bounds
+        np.testing.assert_array_equal(m.target_bin_centers, j.target_bin_centers)
+    elif method in ("organize_stratified", "organize_aggregated"):
+        stratified = method == "organize_stratified"
+        kw = {} if stratified else dict(stratified=False, n_clusters=24,
+                                        step_kwargs={})
+        built = _port_build(arrays, False, **kw)
+        again = copy.deepcopy(built)
+        again.get_fluxMatrix(0)
+        if stratified:
+            again.organize_stratified(use_ray=True, incremental=False)
+            assert again.cluster_mapping == {x: x for x in range(again.n_clusters + 2)}
+        else:
+            again.organize_aggregated(use_ray=True)
+            assert again.removed_clusters == []
+        np.testing.assert_array_equal(again.fluxMatrix, built.fluxMatrix)
+        assert again.nBins == built.nBins
+    elif method == "launch_ray_discretization":
+        built = _port_build(arrays, False)
+        ids = np.concatenate(built.dtrajs)
+        built.dtrajs = built._parent_idx = None
+        built.launch_ray_discretization(progress_bar=object())
+        np.testing.assert_array_equal(np.concatenate(built.dtrajs), ids)
+    elif method == "no_ops":
+        m = modelWE(device="cpu")
+        assert m.check_connect_ray() is None and JaxModelWE.check_connect_ray() is None
+        assert m.progress_disable() is None and m.progress_enable() is None
+        import logging
+
+        from msm_we_tpu_torch._logging import log
+
+        log.addHandler(caplog.handler)  # the package's logger does not propagate
+        try:
+            with caplog.at_level(logging.INFO, logger=log.name):
+                modelWE.print_pseudocommittor_warning()
+        finally:
+            log.removeHandler(caplog.handler)
+        assert "pseudocommittor" in caplog.text
+    elif method == "find_nearest_bin":
+        mapper, jmapper = RectilinearBinMapper([EDGES]), JaxMapper([EDGES])
+        for bin_idx, filled in ((0, [3, 5, 9]), (11, [1, 2]), (6, [0, 11])):
+            assert modelWE.find_nearest_bin(mapper, bin_idx, filled) == \
+                JaxModelWE.find_nearest_bin(jmapper, bin_idx, filled)
+    elif method == "table":
+        assert modelWE._TABLE_STEPS == JaxModelWE._TABLE_STEPS
+        table = modelWE.new_table()
+        assert table.row_count == len(modelWE._TABLE_STEPS) == 12
+        modelWE.set_note(table, 5, "12 bins")
+        assert table.columns[2]._cells[5] == "12 bins"
+        assert modelWE.do_step(table, 6, lambda a, b=0: a + b, args=(2,),
+                               kwargs={"b": 3}, in_subprocess=True) == 5
+        assert "green" in table.columns[0]._cells[6]
+        with pytest.raises(ValueError, match="boom"):
+            modelWE.do_step(table, 7, lambda: (_ for _ in ()).throw(ValueError("boom")))
+        assert "red" in table.columns[0]._cells[7]
+        assert "boom" in table.columns[2]._cells[7]
+    else:
+        m = modelWE(device="cpu")
+        for call in (m.collect_iter_coordinates, m.enable_mesh,
+                     lambda: m.set_topology("ref.pdb"), lambda: m.set_basis("bstate.pdb")):
+            with pytest.raises(NotImplementedError, match="plugins and extended.py"):
+                call()
 
 
 def test_update_cluster_structures_matches_jax(west_h5, arrays):
