@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``msm_we_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases device,build,kernels,main,analysis,access,routes,configs] [--out DIR]
+    python3 chip_smoke.py [--phases device,build,kernels,main,analysis,access,routes,mesh,configs] [--out DIR]
 
 Phases, each printing one JSON line:
 
@@ -99,6 +99,24 @@ Phases, each printing one JSON line:
    path, and each build's ids must equal the plain version's on its own
    features and bank except at near-ties. Launch counts are reset before
    each build of (b)-(d); H4 must launch in each.
+9. ``mesh``: ``parallel/`` on ``torch.distributed``. (a) H4 with and
+   without its score output (``return_scores``) at the kernel table's
+   regimes (K = 250, 3,200, one bin of 300, F = 300): ids bitwise equal,
+   scores against the plain version's where ids agree, times and device
+   times of both forms and the bound with the scores' 4 bytes a row.
+   (b) One NCCL rank (a process group of one): the bench build at 101 x
+   10,000 with both device routes on (``MSM_WE_TPU_DEVICE_*_MIN_ROWS=0``)
+   and ``enable_mesh()``, against the no-mesh device route of the same
+   data (dtrajs equal, flux and JtargetSS within 1e-12), launch counts
+   reset before it; the one-rank mesh step against ``fused_step_single``
+   (flux bitwise, both times). (c) ``entry.dryrun_multichip`` on 2 ranks
+   (meshes (1, 2), (2, 1)) and 4 ranks ((2, 2), (4, 1)) over gloo, the
+   ranks sharing the card: the hot step's problem at K = 250 and 3,200
+   and the awkward shapes, ids and dyadic flux bitwise the one-rank ones.
+   (d) ``launch_local_dryrun`` on the same four meshes (each rank reads
+   only its shard): the flux bitwise the one-rank flux. The phase's launch
+   counts add the NCCL build's and every rank's; H3, H4 and H4's score
+   form must launch.
 
 The line before the last is the ``{"kernels": [...]}`` summary and the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -116,7 +134,7 @@ import time
 from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "main", "analysis", "access", "routes",
-          "configs")
+          "mesh", "configs")
 
 KERNEL_INFO = {
     "transform_assign_child": dict(
@@ -129,6 +147,10 @@ KERNEL_INFO = {
         pallas="H3", replaces="msm_we_tpu/ops/pallas_kernels.py:248",
         source="msm_we_tpu_torch/csrc/assign_flux.cu"),
     "pair_assign": dict(
+        pallas="H4", replaces="msm_we_tpu/ops/pallas_kernels.py:203",
+        source="msm_we_tpu_torch/csrc/pair_assign.cu"),
+    # H4's score form (return_scores=True): the mesh's model axis
+    "pair_assign_scores": dict(
         pallas="H4", replaces="msm_we_tpu/ops/pallas_kernels.py:203",
         source="msm_we_tpu_torch/csrc/pair_assign.cu"),
 }
@@ -2068,6 +2090,226 @@ def phase_routes(args, summary, smi):
     summary["launches_routes"] = total
 
 
+# ------------------------------------------------------------------ mesh
+
+
+def _mesh_regimes(hot, wide, dev):
+    """The kernel table's H4 regimes as card tensors: (name, fp, fc, pbins,
+    cbins, bank): K = 250 (the hot problem), K = 3,200 (128 bins x 25), one
+    bin of 300 centers, and 300 features over 12 bins x 25."""
+    import numpy as np
+    import torch
+
+    def t(a, dt):
+        return torch.as_tensor(np.asarray(a)).to(dt).to(dev).contiguous()
+
+    f32, i32 = torch.float32, torch.int32
+
+    def bank(p):
+        return (t(p["centers"], f32), t(p["center_bin"], i32),
+                t(p["valid"], torch.bool))
+
+    rng = np.random.default_rng(21)
+    N = len(hot["fc"])
+    out = [("K=250", t(hot["fp"], f32), t(hot["fc"], f32), t(hot["pbins"], i32),
+            t(hot["cbins"], i32), bank(hot)),
+           ("K=3200,bins=128", t(wide["fp"], f32), t(wide["fc"], f32),
+            t(wide["pbins"], i32), t(wide["cbins"], i32), bank(wide))]
+    zeros = torch.zeros(N, dtype=i32, device=dev)
+    pick = rng.choice(N, 300, replace=False)
+    one = (t(hot["fc"][pick] + 0.01 * rng.normal(size=(300, hot["fc"].shape[1])), f32),
+           torch.zeros(300, dtype=i32, device=dev),
+           torch.ones(300, dtype=torch.bool, device=dev))
+    out.append(("one_bin,K=300", out[0][1], out[0][2], zeros, zeros, one))
+    gen = torch.Generator(dev).manual_seed(19)
+    fp3 = torch.randn(N, 300, device=dev, generator=gen)
+    fc3 = torch.randn(N, 300, device=dev, generator=gen)
+    b12p = t(rng.integers(0, 12, N), i32)
+    b12c = t(rng.integers(0, 12, N), i32)
+    bank_3 = _wide_bank(fc3, b12c, 12, 25, 23, rng)
+    out.append(("F=300,bins=12x25", fp3, fc3, b12p, b12c, bank_3))
+    return out
+
+
+def _h4_scores(args, hot, wide, summary):
+    """(a) H4 with and without its score output at the table's regimes:
+    ids bitwise equal, scores against the plain version's where the ids
+    agree (mismatching ids must be near-ties), times of both forms."""
+    import torch
+
+    from msm_we_tpu_torch.ops import stratified_assign as sa
+
+    dev = torch.device("cuda")
+    reps = args.reps
+    for regime, fp, fc, pb, cb, bk in _mesh_regimes(hot, wide, dev):
+        N, F = fc.shape
+        SS = bk[0].shape[0] + 2
+        ids = sa.pair_assign(fp, fc, pb, cb, *bk)
+        pk, ck, pmin, cmin = sa.pair_assign(fp, fc, pb, cb, *bk, return_scores=True)
+        require(torch.equal(pk, ids[0]) and torch.equal(ck, ids[1]),
+                f"H4 [{regime}] ids differ with the score output")
+        one, one_min = sa.pair_assign(None, fc, None, cb, *bk, return_scores=True)
+        require(torch.equal(one, ids[1]) and torch.equal(one_min, cmin),
+                f"H4 [{regime}] one-set scores differ from the pair launch's")
+        pp, cp, ppm, cpm = sa.pair_assign_plain(fp, fc, pb, cb, *bk,
+                                                return_scores=True)
+        torch.cuda.synchronize()
+        m1, t1 = _compare_ids("pair_assign_scores", regime, pk, pp, SS, fp, pb, bk)
+        m2, t2 = _compare_ids("pair_assign_scores", regime, ck, cp, SS, fc, cb, bk)
+        err = 0.0
+        for k, p, km, pm in ((pk, pp, pmin, ppm), (ck, cp, cmin, cpm)):
+            require(torch.equal(torch.isinf(km), torch.isinf(pm)),
+                    f"H4 [{regime}] +inf scores differ from the plain version's")
+            same = (k == p) & torch.isfinite(pm)
+            err = max(err, float((km[same] - pm[same]).abs().max()))
+        scale = float(torch.maximum(pmin.abs().max(), cmin.abs().max()))
+        require(err <= 1e-4 * max(scale, 1.0),
+                f"H4 [{regime}] scores differ from the plain version's by {err}")
+        del pp, cp, ppm, cpm
+        call = lambda: sa.pair_assign(fp, fc, pb, cb, *bk)  # noqa: E731
+        scall = lambda: sa.pair_assign(fp, fc, pb, cb, *bk, return_scores=True)  # noqa: E731
+        ms, ms_s = cuda_ms(call, reps), cuda_ms(scall, reps)
+        dms = device_ms(call, "pair_assign_kernel", reps)
+        dms_s = device_ms(scall, "pair_assign_kernel", reps)
+        pms = cuda_ms(lambda: sa.pair_assign_plain(fp, fc, pb, cb, *bk,
+                                                   return_scores=True), reps)
+        pairs = _same_bin_pairs(pb, bk) + _same_bin_pairs(cb, bk)
+        # The score form writes 4 more bytes a row
+        bound = _bound([fp, fc, pb, cb, *bk, pk, ck, pmin, cmin], 2 * pairs * F)
+        emit(dict(phase="mesh", check="h4_scores", regime=regime, n=int(N),
+                  K=int(bk[0].shape[0]), F=int(F), ids_bitwise=True,
+                  id_mismatches_vs_plain=m1 + m2, near_ties=t1 + t2,
+                  max_abs_score_err=err, ms=ms, ms_scores=ms_s, kernel_ms=dms,
+                  kernel_ms_scores=dms_s, plain_ms=pms, bound_ms=bound[0],
+                  bound_by=bound[1]))
+        if regime == "K=250":
+            summary["pair_assign_scores"] = dict(
+                ms=ms_s, plain_ms=pms, max_abs_err=err, bound_ms=bound[0],
+                bound_by=bound[1], kernel_ms=dms_s)
+
+
+def _nccl_build(args, data, hot, smi):
+    """(b) One NCCL rank: the bench build at 101 x 10,000 with both device
+    routes on and ``enable_mesh()`` over a process group of one, against the
+    no-mesh device route (no process group) of the same data; the one-rank
+    mesh step against ``fused_step_single`` on the hot problem. Returns
+    (line, launch counts of the mesh build)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from msm_we_tpu_torch.ops import stratified_assign as sa
+    from msm_we_tpu_torch.parallel import build_sharded_step, make_mesh
+    from msm_we_tpu_torch.step import fused_step_single
+
+    with _device_route():
+        ref_s, ref = _build(data, None, True, 25)
+    require(not ref._mesh.distributed, "the reference build has a process group")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous",
+                            world_size=1, rank=0)
+    try:
+        init_s = time.perf_counter() - t0
+        sa.reset_launch_counts()
+        with _device_route():
+            secs, m = _build(data, None, True, 25)
+        counts = dict(sa.launch_counts(), pair_assign_scores=sa.pair_assign.score_launches)
+        require(m._mesh.distributed and m._mesh.backend == "nccl",
+                f"the mesh build ran on {m._mesh}")
+        for name in ("assign_flux", "pair_assign"):
+            require(counts[name] > 0, f"{name} never launched on the NCCL rank's build")
+        ref._ensure_discretized()
+        m._ensure_discretized()
+        require(np.array_equal(np.concatenate(m.dtrajs), np.concatenate(ref.dtrajs)),
+                "dtrajs differ between the NCCL mesh build and the one-device build")
+        scale = float(np.abs(ref.fluxMatrixRaw).max())
+        flux_err = float(np.abs(m.fluxMatrixRaw - ref.fluxMatrixRaw).max()) / scale
+        j_err = abs(m.JtargetSS - ref.JtargetSS) / abs(ref.JtargetSS)
+        require(flux_err <= 1e-12 and j_err <= 1e-12,
+                f"NCCL mesh build differs: flux {flux_err}, JtargetSS {j_err}")
+        # The one-rank mesh step (H3 + the NCCL all-reduce) against the
+        # one-device step, dyadic f64 weights
+        mesh = make_mesh(device="cuda")
+        dev = torch.device("cuda")
+        keys = ("fp", "fc", "pbins", "cbins", "basis_p", "basis_c", "target_c", "w",
+                "centers", "center_bin", "valid")
+        dt = dict(fp=torch.float32, fc=torch.float32, pbins=torch.int32,
+                  cbins=torch.int32, basis_p=torch.bool, basis_c=torch.bool,
+                  target_c=torch.bool, w=torch.float64, centers=torch.float32,
+                  center_bin=torch.int32, valid=torch.bool)
+        a = [torch.as_tensor(np.asarray(hot[k])).to(dt[k]).to(dev).contiguous()
+             for k in keys]
+        S = int(hot["n_states"])
+        step = build_sharded_step(mesh, S)
+        require(torch.equal(step(*a), fused_step_single(*a, S)[0]),
+                "the one-rank mesh step's flux differs from fused_step_single's")
+        ms_mesh = cuda_ms(lambda: step(*a), args.reps)
+        ms_one = cuda_ms(lambda: fused_step_single(*a, S), args.reps)
+    finally:
+        dist.destroy_process_group()
+    return dict(phase="mesh", check="nccl_one_rank_build", nvidia_smi=smi,
+                segments=int(sum(len(d) for d in m.dtrajs)), init_s=init_s,
+                seconds=secs, seconds_no_mesh=ref_s, stages=_route_stages(m),
+                stages_no_mesh=_route_stages(ref), flux_rel_err=flux_err,
+                JtargetSS=float(m.JtargetSS), JtargetSS_rel_err=j_err,
+                dtrajs_equal=True, launch_counts=counts,
+                mesh_step_ms=ms_mesh, fused_step_single_ms=ms_one,
+                mesh_step_overhead_ms=ms_mesh - ms_one), counts
+
+
+def phase_mesh(args, summary, smi):
+    """``parallel/``: H4's score output, one NCCL rank's build, and the
+    gloo dryruns of 2 and 4 ranks sharing the card."""
+    import torch
+
+    from msm_we_tpu_torch.data import generate_we_arrays
+    from msm_we_tpu_torch.entry import dryrun_multichip, hot_problem, wide_problem
+    from msm_we_tpu_torch.parallel.distributed import launch_local_dryrun
+
+    t_phase = time.perf_counter()
+    hot = hot_problem()
+    wide = wide_problem(hot)
+    _h4_scores(args, hot, wide, summary)
+    torch.cuda.empty_cache()
+    data = summary.get("analysis_data")
+    if data is None:
+        data = generate_we_arrays(n_iterations=101, n_segments=10_000, seed=17)
+        summary["analysis_data"] = data
+    line, total = _nccl_build(args, data, hot, smi)
+    emit(line)
+    per_rank = {}
+    for n in (2, 4):
+        r = dryrun_multichip(n, device="cuda", base={"hot": hot, "wide": wide},
+                             timeout=300)
+        jobs = {c["name"]: {k: v for k, v in c.items() if k != "name"}
+                for c in r["checks"]}
+        for counts in r["rank_launches"]:
+            _add_counts(total, counts)
+        per_rank[f"dryrun_multichip_{n}"] = r["rank_launches"]
+        emit(dict(phase="mesh", check=f"dryrun_multichip_{n}", backend="gloo",
+                  seconds=r["seconds"], jobs=jobs, rank_launches=r["rank_launches"]))
+    for n, m, name, prob in ((2, 2, "K=250", hot), (2, 1, "K=3200", wide),
+                             (4, 2, "K=250", hot), (4, 1, "K=3200", wide)):
+        t0 = time.perf_counter()
+        fm = launch_local_dryrun(n, model_parallel=m, backend="gloo", device="cuda",
+                                 problem=prob, timeout=300)
+        ranks = launch_local_dryrun.rank_launches
+        for counts in ranks:
+            _add_counts(total, counts)
+        emit(dict(phase="mesh", check="launch_local_dryrun", backend="gloo",
+                  mesh=[n // m, m], regime=name, flux_bitwise=True,
+                  flux_sum=float(fm.sum()), seconds=time.perf_counter() - t0,
+                  rank_launches=ranks))
+    for name in ("assign_flux", "pair_assign", "pair_assign_scores"):
+        require(total.get(name, 0) > 0, f"{name} never launched in the mesh phase")
+    summary["launches_mesh"] = total
+    emit(dict(phase="mesh", check="launches", launch_counts=total,
+              seconds=time.perf_counter() - t_phase))
+
+
 # --------------------------------------------------------------- configs
 
 
@@ -2436,6 +2678,8 @@ def main(argv=None):
     summary.pop("bench_data", None)
     if "routes" in phases:
         phase_routes(args, summary, smi)
+    if "mesh" in phases:
+        phase_mesh(args, summary, smi)
     if "configs" in phases:
         phase_configs(args, summary)
 
@@ -2444,16 +2688,21 @@ def main(argv=None):
     launches_configs = summary.get("launches_configs", {})
     launches_access = summary.get("launches_access", {})
     launches_routes = summary.get("launches_routes", {})
+    launches_mesh = summary.get("launches_mesh", {})
     kernels = []
     for name, info in KERNEL_INFO.items():
         k = summary.get(name, {})
+        # H4's score form runs on the mesh path only: its launches are that
+        # path's
+        main_launches = launches_mesh if name == "pair_assign_scores" else launches
         kernels.append(dict(
             name=name, route="cuda", source=info["source"],
-            replaces=info["replaces"], launches=launches.get(name),
+            replaces=info["replaces"], launches=main_launches.get(name),
             launches_analysis=launches_analysis.get(name),
             launches_configs=launches_configs.get(name),
             launches_access=launches_access.get(name),
             launches_routes=launches_routes.get(name),
+            launches_mesh=launches_mesh.get(name),
             max_abs_err=k.get("max_abs_err"), ms=k.get("ms"),
             plain_ms=k.get("plain_ms"), bound_ms=k.get("bound_ms"),
             bound_by=k.get("bound_by"), library_ms=None, mm_ms=k.get("mm_ms"),

@@ -8,6 +8,9 @@
 // over the valid centers of the row's WE bin, id 0 where the bin has none
 // (bin -1 included), then the basis/target overrides in flux order (basis
 // wins) or predict order (target wins), each side from its own flags.
+// Optionally (no overrides) it also stores each row's winning score, +inf
+// where the bin has no valid center: the model axis of parallel/sharded.py
+// combines the (score, id) minima of the bank's shards.
 //
 // What bounds it on an H100: bytes. At 2 x 102,400 rows of 30 f32 features
 // and 25 same-bin centers a row, it must read 24.6 MB of features plus
@@ -184,7 +187,8 @@ pair_assign_kernel(Sides sides, int n_parent, const long long* __restrict__ orde
                    const int32_t* __restrict__ cperm,
                    const float* __restrict__ centers,
                    const float* __restrict__ c2, int F, int n_states,
-                   int overrides) {
+                   int overrides, float* __restrict__ pscore,
+                   float* __restrict__ cscore) {
   // Feature-major, rows padded to 16 bytes: a thread reads its 4 rows and
   // its 4 centers of one feature as one float4 each
   __shared__ __align__(16) float xs[kFeatChunk][kTileRows + 4];
@@ -321,6 +325,8 @@ pair_assign_kernel(Sides sides, int n_parent, const long long* __restrict__ orde
       if (t) id = target_id;
     }
     (parent ? sides.idx[0] : sides.idx[1])[row] = id;
+    float* score = parent ? pscore : cscore;
+    if (score != nullptr) score[row] = best[i];  // +inf: no valid center
   }
 }
 
@@ -371,14 +377,17 @@ int msm_pair_plan_tiles(const int32_t* rkey_s, int R, const long long* ckey,
 // (fp null: the child set alone), with an optional override epilogue
 // (overrides: 0 none, 1 flux order, 2 predict order; masks may be null).
 // order (R, int64), tiles (n_tiles x 4) and cperm are the plan: rows of
-// the plan are the parent rows, then the child rows.
+// the plan are the parent rows, then the child rows. pscore/cscore (may be
+// null) receive each row's winning score, +inf where its bin has no valid
+// center.
 int msm_pair_assign(const float* fp, const float* fc, const uint8_t* basis_p,
                     const uint8_t* basis_c, const uint8_t* target_p,
                     const uint8_t* target_c, const long long* order,
                     const int32_t* tiles, int n_tiles, const int32_t* cperm,
                     const float* centers, const float* c2, int n, int F,
                     int n_states, int overrides, int32_t* pidx,
-                    int32_t* cidx, void* stream) {
+                    int32_t* cidx, float* pscore, float* cscore,
+                    void* stream) {
   if (n <= 0 || F <= 0 || n_tiles <= 0) return int(cudaErrorInvalidValue);
   Sides sides;
   sides.x[0] = fp;
@@ -391,7 +400,7 @@ int msm_pair_assign(const float* fp, const float* fc, const uint8_t* basis_p,
   sides.idx[1] = cidx;
   pair_assign_kernel<<<n_tiles, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       sides, fp != nullptr ? n : 0, order, reinterpret_cast<const int4*>(tiles),
-      cperm, centers, c2, F, n_states, overrides);
+      cperm, centers, c2, F, n_states, overrides, pscore, cscore);
   return int(cudaGetLastError());
 }
 

@@ -2,10 +2,13 @@
 cluster ids on the model's device, and the streaming-clustering batch
 runner.
 
-Counterpart of ``msm_we_tpu/discretization.py`` on one device (the mesh
-programs become single launches of the H4-family kernel,
+Counterpart of ``msm_we_tpu/discretization.py``. The pair and single
+(dedup) routes run the sharded programs of ``parallel/sharded.py`` over the
+model's mesh (``model._active_mesh()``): each rank scores its row block and
+the ids are gathered over the mesh's 'data' axis. On one device (the (1, 1)
+mesh) each program is one launch of the H4-family kernel,
 ``ops/stratified_assign.py::pair_assign``, with the predict-order override
-epilogue). Ids are identical to the JAX package's up to near-ties.
+epilogue. Ids are identical to the JAX package's up to near-ties.
 """
 from __future__ import annotations
 
@@ -13,18 +16,14 @@ import numpy as np
 import torch
 
 from ._logging import log
-from .features import _feat_parent_rows
-from .step import pair_assign_predict, single_assign_predict
+from .features import _feat_parent_rows, mesh_row_feats
+from .parallel.sharded import build_sharded_pair_assign, build_sharded_single_assign
 
 
 def _check_live_centers(strat, pbins, cbins):
     """A present (remapped) WE bin with no live centers would give junk
     ids on the device; ``StratifiedKmeans.check_live_bins`` raises."""
     strat.check_live_bins(np.concatenate([pbins, cbins]))
-
-
-def _dev(a, device):
-    return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
 
 def launch_discretization(model):
@@ -62,25 +61,27 @@ def launch_discretization(model):
 
 
 def device_child_assign(model, strat):
-    """Child-row cluster ids (predict-order overrides) as a device tensor,
-    one kernel launch over the device-resident child features."""
+    """Child-row cluster ids (predict-order overrides) of this rank's row
+    block as a device tensor (``build_sharded_single_assign`` over the
+    model's mesh; every row on one device: one kernel launch over the
+    device-resident child features). Padded rows get id 0."""
+    mesh = model._active_mesh()
     _pb, child_bins = model._raw_we_bins()
     cbins = strat.we_remap[child_bins].astype(np.int32)
     strat.check_live_bins(cbins)
     masks = model._pc_masks()
-    _fp, fc_dev = model._device_row_feats(need_parent=False)
-    dev = model.device
-    return single_assign_predict(
-        fc_dev, _dev(cbins, dev), _dev(masks["basis_c"], dev),
-        _dev(masks["target_c"], dev), *strat.compact_bank_device(),
-        strat.n_total_clusters + 2,
+    _fp, fc_blk = mesh_row_feats(model, mesh, need_parent=False)
+    return build_sharded_single_assign(mesh, strat.n_total_clusters + 2)(
+        fc_blk, mesh.rows(cbins, -1), mesh.rows(masks["basis_c"], False),
+        mesh.rows(masks["target_c"], False), *strat.compact_bank_device(),
     )
 
 
 def pair_discretize(model, strat, parent_bins, child_bins):
     """Parent and child ids for every row, from the device-resident
-    feature arrays (``sharded_pair_discretize`` in JAX). Returns host int32
-    ``(pidx, cidx)``.
+    feature arrays (``sharded_pair_discretize`` in JAX): each rank of the
+    model's mesh scores its row block, the blocks are gathered over 'data'.
+    Returns host int32 ``(pidx, cidx)``, equal on every rank.
 
     Dedup fast path: under WE continuity parent row i is a bit-copy of
     child row src[i]; when its WE bin and basis/target flags also agree
@@ -90,7 +91,7 @@ def pair_discretize(model, strat, parent_bins, child_bins):
     parents) are scored by a second, small launch.
     """
     feats = model._featurize_all()
-    dev = model.device
+    mesh = model._active_mesh()
     N = len(parent_bins)
     pbins = strat.we_remap[parent_bins].astype(np.int32)
     cbins = strat.we_remap[child_bins].astype(np.int32)
@@ -112,24 +113,27 @@ def pair_discretize(model, strat, parent_bins, child_bins):
         )
         direct = np.flatnonzero(~agree)
     if direct is not None and len(direct) <= max(N // 4, 1):
-        cid = device_child_assign(model, strat).cpu().numpy()
+        cid = mesh.gather_rows(device_child_assign(model, strat), N).cpu().numpy()
         pid = cid[s]
         if len(direct):
-            pid[direct] = single_assign_predict(
-                _dev(_feat_parent_rows(feats, direct), dev),
-                _dev(pbins[direct], dev), _dev(basis_p[direct], dev),
-                _dev(target_p[direct], dev), *strat.compact_bank_device(),
-                n_states,
-            ).cpu().numpy()
+            # The disagreeing rows, split over 'data' in turn
+            single = build_sharded_single_assign(mesh, n_states)
+            pid[direct] = mesh.gather_rows(single(
+                mesh.rows(_feat_parent_rows(feats, direct), 0.0),
+                mesh.rows(pbins[direct], -1), mesh.rows(basis_p[direct], False),
+                mesh.rows(target_p[direct], False), *strat.compact_bank_device(),
+            ), len(direct)).cpu().numpy()
         return np.ascontiguousarray(pid), cid
 
-    fp_dev, fc_dev = model._device_row_feats(need_parent=True)
-    pid, cid = pair_assign_predict(
-        fp_dev, fc_dev, _dev(pbins, dev), _dev(cbins, dev),
-        _dev(basis_p, dev), _dev(basis_c, dev), _dev(target_c, dev),
-        *strat.compact_bank_device(), n_states, target_p=_dev(target_p, dev),
+    fp_blk, fc_blk = mesh_row_feats(model, mesh, need_parent=True)
+    pid, cid = build_sharded_pair_assign(mesh, n_states, with_target_p=True)(
+        fp_blk, fc_blk, mesh.rows(pbins, -1), mesh.rows(cbins, -1),
+        mesh.rows(basis_p, False), mesh.rows(basis_c, False),
+        mesh.rows(target_c, False), *strat.compact_bank_device(),
+        mesh.rows(target_p, False),
     )
-    return pid.cpu().numpy(), cid.cpu().numpy()
+    return (mesh.gather_rows(pid, N).cpu().numpy(),
+            mesh.gather_rows(cid, N).cpu().numpy())
 
 
 def run_streaming_batches(model, strat, feats, batches, delegated,

@@ -8,7 +8,10 @@
 valid center in the segment's WE bin -> basis/target overrides -> flux
 scatter -> steady state.
 
-Both run on the card unless the caller asks for the CPU
+``dryrun_multichip(n_ranks, device)`` runs the sharded step of a build on
+``n_ranks`` ranks (``parallel/``) against the one-rank result.
+
+All run on the card unless the caller asks for the CPU
 (``device="cpu"``); without a CUDA device the default raises.
 """
 from __future__ import annotations
@@ -25,7 +28,7 @@ from .ops.stratified_assign import (
 from .step import _discretize_and_flux, steady_state_from_flux
 from .testing import tiny_stratified_problem
 
-__all__ = ["entry", "stage_problem", "hot_step", "TIERS"]
+__all__ = ["entry", "stage_problem", "hot_step", "dryrun_multichip", "TIERS"]
 
 TIERS = ("two_transform", "dedup")
 
@@ -154,3 +157,136 @@ def hot_step(problem, tier="two_transform", device="cuda"):
     _T, pss, flux, residual = steady_state_from_flux(fm, basis_mask, target_mask)
     return dict(fm=fm, pss=pss, flux=flux, residual=residual, pidx=pidx,
                 cidx=cidx)
+
+
+def hot_problem(n_segments=102_400, seed=0):
+    """The hot step's problem as features (``make_problem``'s raw rows
+    through its PCA, in f32 on the host: 10 bins x 25 centers) with dyadic
+    f64 weights, so every flux cell sum is exact in any order."""
+    from .testing import make_problem
+
+    p = make_problem(n_segments=n_segments, seed=seed)
+    off = p["mean"] @ p["comp"]
+    fc = (p["raw_child"] @ p["comp"] - off).astype(np.float32)
+    rng = np.random.default_rng(seed + 5)
+    return dict(fp=(p["raw_parent"] @ p["comp"] - off).astype(np.float32), fc=fc,
+                pbins=p["pbins"], cbins=p["cbins"], basis_p=p["basis_p"],
+                basis_c=p["basis_c"], target_c=p["target_c"],
+                w=rng.integers(1, 17, len(fc)) / 16.0, centers=p["centers"],
+                center_bin=p["center_bin"], valid=p["valid"],
+                n_states=p["n_states"])
+
+
+def wide_problem(problem, n_bins=128, k=25, seed=5):
+    """``problem``'s rows over ``n_bins`` uniform random bins of ``k``
+    centers each (rows of the bin plus noise): the wide bank."""
+    rng = np.random.default_rng(seed)
+    fc = problem["fc"]
+    N = len(fc)
+    out = dict(problem, pbins=rng.integers(0, n_bins, N).astype(np.int32),
+               cbins=rng.integers(0, n_bins, N).astype(np.int32))
+    pick = np.concatenate([
+        rng.choice(m if len(m) else np.arange(N), k, replace=len(m) < k)
+        for m in (np.flatnonzero(out["cbins"] == b) for b in range(n_bins))])
+    out["centers"] = (fc[pick] + 0.01 * rng.normal(size=(len(pick), fc.shape[1]))
+                      ).astype(np.float32)
+    out["center_bin"] = np.repeat(np.arange(n_bins, dtype=np.int32), k)
+    out["valid"] = np.ones(len(pick), bool)
+    out["n_states"] = len(pick) + 2
+    return out
+
+
+def _awkward_problems(data, model):
+    """The JAX dryrun's awkward shapes for a (data, model) mesh: ``model +
+    1`` bins of 3 centers over ``16 data + 7`` rows (bins straddle the
+    bank's shards, K does not divide), and one bin of ``4 model + 1``
+    centers over ``8 data + 1`` rows (a bin spanning every shard). Each
+    also padded by one more row block and one more bank block."""
+    from .parallel.distributed import pad_problem
+    from .testing import tiny_stratified_problem
+
+    out = {}
+    for i, (n_bins, k, n) in enumerate([(model + 1, 3, 16 * data + 7),
+                                        (1, 4 * model + 1, 8 * data + 1)]):
+        raw = tiny_stratified_problem(n_rows=n, n_bins=n_bins, k=k, seed=11)
+        raw["w"] = raw["w"].astype(np.float64)
+        K = n_bins * k
+        out[f"awkward{i}"] = raw
+        out[f"awkward{i}_padded"] = pad_problem(
+            raw, (-(-n // data) + 1) * data, (-(-K // model) + 1) * model)
+    return out
+
+
+def dryrun_multichip(n_ranks, device="cuda", n_segments=102_400, wide_bins=128,
+                     backend="gloo", timeout=600, base=None):
+    """The sharded programs of a build on ``n_ranks`` ranks against one rank.
+
+    One process group of ``n_ranks`` ranks (``parallel.distributed.
+    launch_programs``, ``backend`` gloo: its ranks may share one card) runs
+    the flux step, the pair, single and plain assignments and the cluster
+    statistics (``parallel.distributed.run_programs``) on two mesh shapes,
+    ``best_mesh_shape``'s and (``n_ranks``, 1):
+    the hot step's problem (``n_segments`` rows, raw 900 -> 30 features, 10
+    bins x 25 centers; dyadic f64 weights), the same rows over
+    ``wide_bins`` bins of 25 centers, and the JAX dryrun's awkward shapes,
+    each also padded by one more row block and bank block (``base``: the
+    first two problems, already made, by name). This process
+    runs each problem on the (1, 1) mesh of ``device``. Ids, the flux,
+    counts, minima and maxima must be bitwise the one-rank ones (the f64
+    pcoord sums to 1e-12), a padded problem's bitwise its unpadded one's.
+    Returns
+    ``{"checks": [...], "problems": {...}, "results": {...}, "seconds"}``.
+    """
+    import time
+
+    from .parallel.distributed import (
+        complete_problem,
+        launch_programs,
+        run_programs,
+        shard_problem,
+    )
+    from .parallel.mesh import Mesh, best_mesh_shape
+
+    dev = as_device(device)
+    models = sorted({best_mesh_shape(n_ranks)[1], 1}, reverse=True)
+    t0 = time.perf_counter()
+    if base is None:
+        base = {"hot": hot_problem(n_segments)}
+        if wide_bins:
+            base["wide"] = wide_problem(base["hot"], wide_bins)
+    problems, jobs = {}, []
+    for m in models:
+        shape = f"{n_ranks // m}x{m}"
+        for name, prob in {**base, **_awkward_problems(n_ranks // m, m)}.items():
+            key = f"{name}@{shape}"
+            problems[key] = complete_problem(prob)
+            jobs.append((key, problems[key], m))
+    results = launch_programs(jobs, n_ranks, backend=backend, device=device,
+                              timeout=timeout)
+    one_mesh = Mesh.single(dev)
+    checks = []
+    for key, prob in problems.items():
+        got = results[key]
+        N = len(prob["w"])
+        ref = run_programs(one_mesh, shard_problem(prob))
+        line = dict(name=key, n=N, K=len(prob["valid"]))
+        for k in ("fm", "pidx", "cidx", "single", "assign", "counts", "vmin", "vmax"):
+            if not np.array_equal(got[k], ref[k]):
+                raise AssertionError(f"{key}: {k} differs from the one-rank result")
+        scale = max(float(np.abs(ref["sums"]).max()), 1e-300)
+        sums_err = float(np.abs(got["sums"] - ref["sums"]).max()) / scale
+        if sums_err > 1e-12:
+            raise AssertionError(f"{key}: pcoord sums differ by {sums_err}")
+        line.update(ids_bitwise=True, flux_bitwise=True, sums_rel_err=sums_err)
+        if "_padded" in key:
+            unpadded = results[key.replace("_padded", "")]
+            n0 = len(unpadded["cidx"])
+            if not (np.array_equal(got["fm"], unpadded["fm"]) and all(
+                    np.array_equal(got[k][:n0], unpadded[k])
+                    for k in ("pidx", "cidx", "single", "assign"))):
+                raise AssertionError(f"{key}: padding changed the answer")
+            line["padding_inert"] = True
+        checks.append(line)
+    return dict(checks=checks, problems=problems, results=results,
+                rank_launches=launch_programs.rank_launches,
+                seconds=time.perf_counter() - t0)

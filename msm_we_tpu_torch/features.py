@@ -3,7 +3,8 @@ the device-resident feature arrays.
 
 Counterpart of ``msm_we_tpu/features.py`` (``FeatureSet``,
 ``StreamingReducer``, ``featurize_all``, ``featurize_dedup``,
-``device_row_feats``) on one device. Host featurization is numpy and
+``device_row_feats``); ``mesh_row_feats`` gives a rank of a mesh its row
+block. Host featurization is numpy and
 unchanged, so the port's features are bitwise those of the JAX package.
 Under WE continuity the parent features are a recipe (a gather of child
 rows plus directly featurized fallback rows); the device copy of the
@@ -467,3 +468,28 @@ def device_row_feats(model, need_parent=True):
     pair = (parent_dev, child_dev)
     model._dev_feats_cache = (feats, pair)
     return pair
+
+
+def mesh_row_feats(model, mesh, need_parent=True):
+    """This rank's row block of the (parent, child) feature arrays on the
+    mesh's device (``Mesh.rows``: contiguous, zero-padded; the padded rows
+    carry bin -1 wherever they are scored). With one data rank the block is
+    every row: the arrays of :func:`device_row_feats`. With more, only the
+    block is uploaded (its parent rows gathered on the host from the
+    :class:`FeatureSet` recipe), cached per feature set and mesh."""
+    if mesh.shape["data"] == 1:
+        return device_row_feats(model, need_parent=need_parent)
+    feats = model._featurize_all()
+    cache = getattr(model, "_mesh_feats_cache", None)
+    if cache is not None and cache[0] is feats and cache[1] is mesh:
+        parent, child = cache[2]
+        if parent is not None or not need_parent:
+            return cache[2]
+    else:
+        parent, child = None, mesh.rows(feats["child"], 0.0)
+    if need_parent:
+        lo, hi, block = mesh.row_block(len(feats["child"]))
+        parent = mesh.pad_block(_feat_parent_rows(feats, np.arange(lo, hi)),
+                                block, 0.0)
+    model._mesh_feats_cache = (feats, mesh, (parent, child))
+    return parent, child

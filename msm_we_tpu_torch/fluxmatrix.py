@@ -9,18 +9,22 @@ Host route (the default): the ids come from the device discretization; the
 (n+2)^2 accumulation is one f64 bincount on the host (WE weights span
 hundreds of decades).
 
-Device route (``device_flux_lag0``, opt-in): one H3 launch
-(``ops.stratified_assign.assign_flux``) assigns the device-resident parent
-and child features, applies the flux-order overrides and scatters the f64
-weights into the flux matrix with f64 ``atomicAdd``; only the (n+2)^2
-matrix comes back. The card takes the place of the JAX package's (1, 1)
-mesh: the route is open when ``model.device_pipeline`` is set, and taken
-when ``model._force_device_flux`` is set or the ids are still deferred and
-the build has at least ``MSM_WE_TPU_DEVICE_FLUX_MIN_ROWS`` rows (default:
-never). ``MSM_WE_TPU_DEVICE_FLUX_F32=1`` accumulates in f32 instead. The
-atomics add in an order that changes between runs, so the device flux
-equals the host bincount to f64 rounding (bitwise for dyadic weights), not
-bit for bit.
+Device route (``device_flux_lag0``, opt-in): the sharded step of
+``parallel/sharded.py`` over the model's mesh. On one device it is one H3
+launch (``ops.stratified_assign.assign_flux``) that assigns the
+device-resident parent and child features, applies the flux-order
+overrides and scatters the f64 weights into the flux matrix with f64
+``atomicAdd``; on a mesh each rank does that on its row block (or, with a
+model axis, H4 with scores on its bank shard, the (min, id) combine, the
+overrides and an f64 scatter) and the f64 partials are summed over 'data'.
+Only the (n+2)^2 matrix comes back. The route is open when
+``model.device_pipeline`` is set, and taken when ``model._force_device_flux``
+is set, when the mesh has more than one rank, or when the ids are still
+deferred and the build has at least ``MSM_WE_TPU_DEVICE_FLUX_MIN_ROWS``
+rows (default: never). ``MSM_WE_TPU_DEVICE_FLUX_F32=1`` accumulates in f32
+instead. The atomics add in an order that changes between runs, so the
+device flux equals the host bincount to f64 rounding (bitwise for dyadic
+weights), not bit for bit.
 
 Left out on purpose: the JAX package's packed-sparse flux download
 (``build_sharded_step_packed*``, ``flux_pack_capacity``,
@@ -90,11 +94,13 @@ def get_flux_matrix(model, n_lag, first_iter=1, last_iter=None,
         and not getattr(model, "_flux_prefer_host", False)
         and device_f64_weights_ok(model, feats["weights"])
     )
-    if use_device_flux and not model._force_device_flux:
+    if (use_device_flux and not model._force_device_flux
+            and model._active_mesh().world_size == 1):
         # With the ids in hand (or cheap to get: one discretization whose
         # ids every later stage reuses) the host bincount needs no second
         # assignment of every row. The device route is for deferred ids on
-        # builds of at least DEVICE_FLUX_MIN_ROWS rows (default: never).
+        # builds of at least DEVICE_FLUX_MIN_ROWS rows (default: never), and
+        # for meshes of several ranks, whatever the rows.
         big = int(feats["offsets"][-1]) >= _min_rows(DEVICE_FLUX_MIN_ROWS_ENV)
         if model._parent_idx is not None or not big:
             use_device_flux = False
@@ -142,47 +148,54 @@ def _remap_gather(raw, remap):
     ).to(torch.int32)
 
 
-def _flux_rows(model, feats, masks, iters_to_use, f32_tier):
-    """The call-invariant row tensors of :func:`device_flux_lag0` on the
-    model's device, cached on the model per (feature set, iteration window,
-    tier): the basis/target masks, the weights with the iteration selection
+def _flux_rows(model, feats, masks, iters_to_use, f32_tier, mesh):
+    """The call-invariant row tensors of :func:`device_flux_lag0`, this
+    rank's row block of them on the mesh's device (every row on one
+    device), cached on the model per (feature set, iteration window, tier,
+    mesh): the basis/target masks, the weights with the iteration selection
     folded in (``w * isin(iteration, iters)``; adding 0.0 is exact, so the
     feature arrays need no gather), and for stratified clustering the raw
-    WE bins. Cleaning recomputes the flux once a pass with the same
-    window."""
+    WE bins. Padded rows carry weight 0, masks False and bin -1. Cleaning
+    recomputes the flux once a pass with the same window."""
     key = (tuple(iters_to_use), f32_tier)
     cache = getattr(model, "_device_flux_row_cache", None)
-    if cache is not None and cache[0] is feats and cache[1] == key:
+    if (cache is not None and cache[0] is feats and cache[1] == key
+            and cache[3] is mesh):
         return cache[2]
-    dev = model.device
     sel = np.isin(feats["iteration"], list(iters_to_use))
     w = np.where(sel, feats["weights"], 0.0).astype(
         np.float32 if f32_tier else np.float64
     )
-    rows = {"w": torch.as_tensor(w, device=dev)}
+    rows = {"w": mesh.rows(w, 0.0)}
     for name in ("basis_p", "basis_c", "target_p", "target_c"):
-        rows[name] = torch.as_tensor(masks[name], device=dev)
+        rows[name] = mesh.rows(masks[name], False)
     if model._strat is not None:
         raw_p, raw_c = model._raw_we_bins()
-        rows["raw_p"] = torch.as_tensor(raw_p.astype(np.int32), device=dev)
-        rows["raw_c"] = torch.as_tensor(raw_c.astype(np.int32), device=dev)
-    model._device_flux_row_cache = (feats, key, rows)
+        rows["raw_p"] = mesh.rows(raw_p.astype(np.int32), -1)
+        rows["raw_c"] = mesh.rows(raw_c.astype(np.int32), -1)
+    model._device_flux_row_cache = (feats, key, rows, mesh)
     return rows
 
 
-def _flux_launch_args(model, iters_to_use):
-    """``(args, target_p)`` of the H3 launch of :func:`device_flux_lag0`, on
-    the model's device: the feature rows, the remapped WE bins (gathered on
-    the device from the cached raw bins and the current ``we_remap``), the
-    weights and masks of :func:`_flux_rows`, the compact bank and the
-    nominal state count. Aggregated clustering is one implicit bin holding
-    every center and has no ``target_p``."""
+def _flux_launch_args(model, iters_to_use, mesh=None):
+    """``(args, target_p)`` of the sharded step of :func:`device_flux_lag0`
+    (the H3 launch on one device), this rank's row block on the mesh's
+    device: the feature rows, the remapped WE bins (gathered on the device
+    from the cached raw bins and the current ``we_remap``), the weights and
+    masks of :func:`_flux_rows`, the whole compact bank and the nominal
+    state count, in ``assign_flux``'s order (``mesh`` default: the
+    model's). Aggregated clustering is one implicit bin holding every
+    center and has no ``target_p``."""
+    from .features import mesh_row_feats
+
+    mesh = model._active_mesh() if mesh is None else mesh
     feats = model._featurize_all()
     strat = model._strat
-    dev = model.device
+    dev = mesh.device
     f32_tier = os.environ.get(DEVICE_FLUX_F32_ENV, "") == "1"
-    fp_dev, fc_dev = model._device_row_feats()
-    rows = _flux_rows(model, feats, model._pc_masks(), iters_to_use, f32_tier)
+    fp_dev, fc_dev = mesh_row_feats(model, mesh)
+    rows = _flux_rows(model, feats, model._pc_masks(), iters_to_use, f32_tier,
+                      mesh)
     if strat is not None:
         bank = strat.compact_bank_device()
         remap = torch.as_tensor(strat.we_remap.astype(np.int32), device=dev)
@@ -196,7 +209,8 @@ def _flux_launch_args(model, iters_to_use):
             torch.zeros(len(centers), dtype=torch.int32, device=dev),
             torch.ones(len(centers), dtype=torch.bool, device=dev),
         )
-        pbins = cbins = torch.zeros(len(rows["w"]), dtype=torch.int32, device=dev)
+        pbins = cbins = mesh.rows(
+            np.zeros(int(feats["offsets"][-1]), np.int32), -1)
         target_p = None
     args = (fp_dev, fc_dev, pbins, cbins, rows["w"], rows["basis_p"],
             rows["basis_c"], rows["target_c"], *bank, model.n_clusters + 2)
@@ -204,11 +218,14 @@ def _flux_launch_args(model, iters_to_use):
 
 
 def device_flux_lag0(model, iters_to_use):
-    """Fused lag-0 flux matrix on the model's device: one H3 launch
-    (``assign_flux``) over the device-resident features assigns parent and
-    child rows against the compact bank, applies the flux-order overrides
-    and scatters the weights. Returns the (n+2, n+2) float64 sum over the
-    window, not yet divided by the number of iterations.
+    """Fused lag-0 flux matrix on the model's mesh: on one device one H3
+    launch (``assign_flux``) over the device-resident features assigns
+    parent and child rows against the compact bank, applies the flux-order
+    overrides and scatters the weights; on a mesh of ranks each scores its
+    row block (``parallel.sharded._discretize_and_flux``) and the f64
+    partials are summed over 'data'. Returns the (n+2, n+2) float64 sum
+    over the window, not yet divided by the number of iterations, equal on
+    every rank.
 
     Stratified clustering scores each row against its (remapped) WE bin's
     centers and sends target-region parents to the target state; aggregated
@@ -224,34 +241,41 @@ def device_flux_lag0(model, iters_to_use):
     (target wins) at the bank's live numbering, as ``pair_discretize``
     numbers them. From that row count on the ids stay on the device and the
     dtrajs deferred: a later host consumer materializes them once, against
-    the final bank.
+    the final bank. Minted ids are gathered over the mesh's 'data' axis.
     """
     from .discretization import _check_live_centers
-    from .ops.stratified_assign import assign_flux
+    from .parallel.sharded import _discretize_and_flux
     from .step import _apply_overrides
 
     strat = model._strat
     n_states = model.n_clusters + 2
-    args, target_p = _flux_launch_args(model, iters_to_use)
+    mesh = model._active_mesh()
+    N = int(model._featurize_all()["offsets"][-1])
+    args, target_p = _flux_launch_args(model, iters_to_use, mesh)
     want_ids = (
         model._parent_idx is None
         and strat is not None
-        and len(args[4]) < _min_rows(DEVICE_FLUX_MIN_ROWS_ENV)
+        and N < _min_rows(DEVICE_FLUX_MIN_ROWS_ENV)
     )
     if want_ids:
         # Same junk-id guard as pair_discretize: this launch is about to
         # mint the build's dtrajs
         raw_p, raw_c = model._raw_we_bins()
         _check_live_centers(strat, strat.we_remap[raw_p], strat.we_remap[raw_c])
-    pidx, cidx, fm = assign_flux(*args, target_p=target_p)
+    fp, fc, pbins, cbins, w, basis_p, basis_c, target_c = args[:8]
+    *shard, offset = mesh.bank_shard(*args[8:11])
+    fm, pidx, cidx = _discretize_and_flux(
+        mesh, fp, fc, pbins, cbins, basis_p, basis_c, target_c, w, *shard,
+        n_states, offset, target_p=target_p,
+    )
     if want_ids:
-        basis_p, basis_c, target_c = args[5:8]
         pid, cid = _apply_overrides(
             pidx, cidx, basis_p, basis_c, target_c,
             strat.n_total_clusters + 2, target_p=target_p, predict_order=True,
         )
         model._scored_on_host = False
-        model._store_dtrajs(pid.cpu().numpy(), cid.cpu().numpy())
+        model._store_dtrajs(mesh.gather_rows(pid, N).cpu().numpy(),
+                            mesh.gather_rows(cid, N).cpu().numpy())
     fm = fm.to(torch.float64).cpu().numpy()
     if fm.shape != (n_states, n_states):
         raise RuntimeError(f"device flux has shape {fm.shape}")

@@ -12,9 +12,17 @@ names are the JAX package's (``fluxMatrixRaw``, ``fluxMatrix``, ``pSS``,
 ``JtargetSS``, ``stage_timings``, ``dtrajs``, ``pair_dtrajs``,
 ``validation_models``, ...).
 
-One device replaces the JAX package's mesh: ``modelWE(device="cuda")``,
-the default; a caller asks for the CPU with ``device="cpu"`` (the tests
-do), and nothing falls back to the CPU when no card is present. With
+A model runs on one device, ``modelWE(device="cuda")``, the default; a
+caller asks for the CPU with ``device="cpu"`` (the tests do), and nothing
+falls back to the CPU when no card is present. Several cards build one
+model as one process each (``torchrun --nproc_per_node=N``, every rank
+running the same script on the same inputs) after ``model.enable_mesh()``:
+the discretization, the device flux and the device cluster statistics then
+split their rows over the mesh's 'data' axis and the center bank over its
+'model' axis (``parallel/``), and every rank ends with the same model and
+its dtrajs, which one rank may then read alone; a later call that takes a
+device route (cluster statistics, flux) is collective, so every rank makes
+it. With
 CUDA the discretization, the streaming clustering scan, the device-family
 seeding, the aggregated k-means and the cleaning re-assignments launch the
 hand-written kernels of ``ops/stratified_assign.py``; with the CPU they
@@ -22,8 +30,11 @@ run the plain versions.
 ``device_pipeline`` picks the discretization route: the pair route
 (``True``, parent and child rows in one pair launch) or the predict route
 (``False``, the default of ``build_analyze_model``: the 2N concatenated
-rows through ``StratifiedKmeans.predict``). Where the JAX package asks
-whether a mesh is enabled, the port asks ``device_pipeline``: with it a
+rows through ``StratifiedKmeans.predict``). ``build_analyze_model(
+device_pipeline=True)`` enables a mesh when none is set (the (1, 1) mesh
+without a process group: every route is then the one-device route). Where
+the JAX package asks whether a mesh is enabled, the port asks
+``device_pipeline``; ``model._mesh`` says over which ranks. With it a
 stratified build without cross-validation defers its discretization to the
 flux stage, and the opt-in device routes open (the fused H3 flux,
 ``fluxmatrix.device_flux_lag0``, and the device cluster statistics,
@@ -56,6 +67,7 @@ from .binning import find_nearest_bin
 from .data.arrays import ArrayWEDataset
 from .data.westh5 import WEDataset
 from .features import device_row_feats, featurize_all
+from .parallel.mesh import Mesh, bank_digest, make_mesh
 from .ops import linalg
 from .ops.kmeans import assign_flat, kmeans_fit
 from .ops.pca import IdentityCoordinates, MomentAccumulator, PairMomentAccumulator
@@ -177,6 +189,9 @@ class modelWE:
     # (fluxmatrix.device_flux_lag0) wherever it is open, whatever the row
     # count and whether or not the ids are stored
     _force_device_flux = False
+    # The mesh of ranks the device routes run over (enable_mesh); None: one
+    # device
+    _mesh = None
 
     def __init__(self, device="cuda"):
         self.device = as_device(device)
@@ -789,6 +804,7 @@ class modelWE:
         self.kmeans_init_index = init
         self._strat = None
         self._bin_mapper = None
+        self._check_bank_replicated()
         self._discretize_all_aggregated()
 
     def _discretize_all_aggregated(self):
@@ -856,6 +872,9 @@ class modelWE:
 
         self._strat = strat
         self.clusters = StratifiedClustersShim(bin_mapper, self, strat)
+        if self._mesh is not None:
+            strat.use_mesh(self._mesh)
+            self._check_bank_replicated()
         # The nominal total (reference ``_clustering.py:742``); never-visited
         # clusters are cleaned away in organize_fluxMatrix
         self.n_clusters = n_clusters * bin_mapper.nbins
@@ -1334,6 +1353,8 @@ class modelWE:
         timer = StageTimer()
         self.stage_timings = timer
         self.device_pipeline = bool(device_pipeline)
+        if self.device_pipeline and self._mesh is None:
+            self.enable_mesh()
         self.build_profile = None
         try:
             with profile_trace(profile_dir) as prof, live_stage_display(
@@ -1353,6 +1374,10 @@ class modelWE:
                     cross_validation_blocks=cross_validation_blocks,
                     allow_validation_failure=allow_validation_failure,
                 )
+                if self._mesh is not None and self._mesh.distributed:
+                    # Gathering deferred ids is collective: every rank mints
+                    # them now, so that one rank alone may read the dtrajs
+                    self._ensure_discretized()
             self.build_profile = prof
         finally:
             # Release cached read handles even when a stage raises: WESTPA
@@ -1457,7 +1482,8 @@ class modelWE:
 
     # ---------------------------------------------------------- checkpointing
     _DEVICE_CACHES = ("_dev_feats_cache", "_pc_masks_cache",
-                      "_device_flux_row_cache", "_device_p1_cache")
+                      "_device_flux_row_cache", "_device_p1_cache",
+                      "_mesh_feats_cache")
 
     def _state(self):
         """The instance state without the caches derived from it (device
@@ -1474,6 +1500,7 @@ class modelWE:
         machine without a GPU (``load`` moves it to a device)."""
         state = self._state()
         state["device"] = torch.device("cpu")
+        state["_mesh"] = None  # a mesh belongs to its process: enable it again
         for key in ("coordinates", "clusters"):
             if hasattr(state[key], "device"):
                 obj = copy.copy(state[key])
@@ -1483,8 +1510,8 @@ class modelWE:
 
     def __deepcopy__(self, memo):
         """A copy on the same device (``post_cluster_model`` and the
-        validation models keep their CUDA bank); only the caches are
-        dropped."""
+        validation models keep their CUDA bank) and the same live mesh;
+        only the caches are dropped."""
         new = self.__class__.__new__(self.__class__)
         memo[id(self)] = new
         new.__dict__.update(copy.deepcopy(self._state(), memo))
@@ -1494,6 +1521,14 @@ class modelWE:
         """Move the model (its center bank, transform and the models it
         holds for validation) to ``device``; returns ``self``."""
         device = as_device(device)
+        if self._mesh is not None and self._mesh.device.type != device.type:
+            if self._mesh.distributed:
+                raise ValueError(
+                    f"the model runs on a mesh of ranks on {self._mesh.device}; "
+                    "it cannot move to another device")
+            self._mesh = Mesh.single(device)  # the (1, 1) mesh follows the model
+            if self._strat is not None:
+                self._strat.use_mesh(self._mesh)
         self.device = device
         for key in self._DEVICE_CACHES:
             setattr(self, key, None)
@@ -1621,8 +1656,48 @@ class modelWE:
         raise _not_ported("collect_iter_coordinates", "plugins and extended.py")
 
     def enable_mesh(self, mesh=None):
-        """The port runs on one device; a device mesh is not covered."""
-        raise _not_ported("enable_mesh (a device mesh)", "plugins and extended.py")
+        """Run the device routes over a ('data', 'model') mesh of ranks.
+
+        With no argument, ``parallel.make_mesh(device=self.device)``: over
+        the ranks of the initialized default process group (launch the
+        build script with ``torchrun --nproc_per_node=N``; every rank runs
+        it on the same inputs), else the (1, 1) mesh, on which every route
+        is the one-device route. Segments split over 'data', the compact
+        center bank over 'model'; ids are bitwise the one-device ids and
+        every rank ends with the same model. Call before or after
+        clustering: the mesh attaches to the stratified bank, and with a
+        process group the ranks' banks are checked equal. Returns the
+        mesh."""
+        self._mesh = mesh if mesh is not None else make_mesh(device=self.device)
+        for key in self._DEVICE_CACHES:  # device tensors are mesh-specific
+            if key != "_pc_masks_cache":
+                setattr(self, key, None)
+        if self._strat is not None:
+            self._strat.use_mesh(self._mesh)
+        if self.clusters is not None:
+            self._check_bank_replicated()
+        return self._mesh
+
+    def _active_mesh(self):
+        """The mesh the device routes run over: ``enable_mesh``'s, else the
+        (1, 1) mesh on the model's device."""
+        return self._mesh if self._mesh is not None else Mesh.single(self.device)
+
+    def _check_bank_replicated(self):
+        """Raise unless every rank of the mesh holds the same center bank
+        (clustering is not sharded: each rank fits the whole bank, and the
+        fits are bitwise reproducible). A no-op without a process group."""
+        mesh = self._mesh
+        if mesh is None or not mesh.distributed:
+            return
+        if self._strat is not None:
+            strat = self._strat
+            digest = bank_digest(
+                *(t.cpu().numpy() for t in strat.compact_bank_device()),
+                strat.we_remap, strat.valid)
+        else:
+            digest = bank_digest(np.asarray(self.clusters.cluster_centers_))
+        mesh.check_same(digest, "center banks after the fit")
 
     # Manual live-table helpers (reference msm_we.py:529-586). The display
     # of build_analyze_model is driven by StageTimer; these statics keep the

@@ -36,7 +36,7 @@ _SIGNATURES = {
     "msm_assign_flux": [_P] * 7 + [_I] + [_P] * 5 + [_I] * 4 + [_P] * 4,
     "msm_pair_plan_keys": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P],
     "msm_pair_plan_tiles": [_P, _I, _P, _I, _P, _P, _P, _I, _P],
-    "msm_pair_assign": [_P] * 8 + [_I] + [_P] * 3 + [_I] * 4 + [_P] * 3,
+    "msm_pair_assign": [_P] * 8 + [_I] + [_P] * 3 + [_I] * 4 + [_P] * 5,
 }
 
 _lock = threading.Lock()

@@ -19,6 +19,12 @@ Numerics families, as in the JAX package:
   counts)`` as torch tensors on the model's device between batches
   (``_dev_state``) and assigns through ``ops.kmeans.masked_assign`` (the
   H4-family kernel on CUDA).
+
+With a mesh of several ranks (``use_mesh``) predictions of
+``HOST_BATCH_THRESHOLD`` rows or more run ``parallel.sharded.
+build_sharded_assign`` over it: each rank scores its row block against the
+compact bank, the ids are gathered. On one rank every prediction takes the
+one-device route.
 """
 from __future__ import annotations
 
@@ -116,6 +122,8 @@ class StratifiedKmeans:
     device-family state and assignments live.
     """
 
+    mesh = None  # set by use_mesh() for predictions over a mesh of ranks
+
     def __init__(self, n_bins, k_per_bin, n_features, seed=0, device="cpu"):
         self.n_bins = int(n_bins)
         self.k = int(k_per_bin)
@@ -164,6 +172,7 @@ class StratifiedKmeans:
             state["counts"] = n.cpu().numpy().copy()
             state["_dev_state"] = None
         state["device"] = torch.device("cpu")
+        state["mesh"] = None  # a mesh belongs to its process
         return state
 
     def __deepcopy__(self, memo):
@@ -379,13 +388,37 @@ class StratifiedKmeans:
         the two extra indices (target wins)."""
         seg_bins = self.we_remap[np.asarray(seg_bins)]
         self.check_live_bins(seg_bins)
-        flat = self.assign_flat(X, seg_bins, self.scores_on_host(len(X)))
-        out = self.global_id[flat]
+        if (self.mesh is not None and self.mesh.world_size > 1
+                and len(X) >= HOST_BATCH_THRESHOLD):
+            out = self._predict_sharded(X, seg_bins)
+        else:
+            flat = self.assign_flat(X, seg_bins, self.scores_on_host(len(X)))
+            out = self.global_id[flat]
         if is_basis is not None:
             out = np.where(np.asarray(is_basis), self.basis_cluster_index, out)
         if is_target is not None:
             out = np.where(np.asarray(is_target), self.target_cluster_index, out)
         return out
+
+    def use_mesh(self, mesh):
+        """Route large predictions through ``mesh`` when it has several
+        ranks (None or one rank: the one-device route)."""
+        self.mesh = mesh
+
+    def _predict_sharded(self, X, seg_bins):
+        """Global ids of ``X`` (bins already remapped) over the mesh: each
+        rank scores its row block against the compact bank
+        (``build_sharded_assign``), the blocks are gathered over 'data'.
+        The ids equal the one-device ``assign_flat`` route's."""
+        from ..parallel.sharded import build_sharded_assign
+
+        mesh = self.mesh
+        X = np.asarray(X, np.float32)
+        gid = build_sharded_assign(mesh)(
+            mesh.rows(X, 0.0), mesh.rows(np.asarray(seg_bins, np.int32), -1),
+            *self.compact_bank_device(),
+        )
+        return mesh.gather_rows(gid, len(X)).cpu().numpy().astype(np.int64)
 
     def compact_bank(self):
         """``(centers, center_bin, valid)`` host arrays with the valid

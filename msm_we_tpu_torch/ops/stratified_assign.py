@@ -151,14 +151,35 @@ def assign_flux_plain(fp, fc, pbins, cbins, w, basis_p, basis_c, target_c,
     return pidx, cidx, _flux(pidx, cidx, w, n_states)
 
 
+def _argmin_scores(X, bins, centers, center_bin, valid):
+    """Ids and winning scores of the masked nearest center: the
+    ``masked_scores`` minimum, ``+inf`` where the row's bin has no valid
+    center (the kernel's ``best`` register then stays ``+inf``)."""
+    scores = masked_scores(X, bins, centers, center_bin, valid)
+    idx = torch.argmin(scores, dim=1)
+    best = scores.gather(1, idx[:, None])[:, 0]
+    has = (valid[None, :] & (center_bin[None, :] == bins[:, None])).any(1)
+    return idx.to(torch.int32), torch.where(has, best, float("inf"))
+
+
 def pair_assign_plain(fp, fc, pbins, cbins, centers, center_bin, valid,
                       n_states=None, basis_p=None, basis_c=None,
-                      target_p=None, target_c=None, order=None):
+                      target_p=None, target_c=None, order=None,
+                      return_scores=False):
     """Plain H4: nearest valid same-bin center ids, optionally followed by
     the override epilogue (``order`` None, ``"flux"`` or ``"predict"``).
     With ``fp=None`` only the ``fc`` rows are assigned and ``cidx`` alone
-    is returned; otherwise ``(pidx, cidx)``."""
+    is returned; otherwise ``(pidx, cidx)``. ``return_scores`` (no
+    overrides) appends the f32 winning scores: ``(cidx, cmin)`` or
+    ``(pidx, cidx, pmin, cmin)``."""
     _check_order(order, n_states)
+    _check_scores(return_scores, order)
+    if return_scores:
+        cidx, cmin = _argmin_scores(fc, cbins, centers, center_bin, valid)
+        if fp is None:
+            return cidx, cmin
+        pidx, pmin = _argmin_scores(fp, pbins, centers, center_bin, valid)
+        return pidx, cidx, pmin, cmin
     cidx = _argmin(fc, cbins, centers, center_bin, valid)
     pidx = None if fp is None else _argmin(
         fp, pbins, centers, center_bin, valid
@@ -189,6 +210,12 @@ def _check_order(order, n_states):
         raise ValueError(f"order must be None, 'flux' or 'predict', got {order!r}")
     if order is not None and n_states is None:
         raise ValueError("overrides need n_states")
+
+
+def _check_scores(return_scores, order):
+    # A score belongs to the raw winner; overrides apply after any combine
+    if return_scores and order is not None:
+        raise ValueError("scores come only without overrides (order=None)")
 
 
 # ----------------------------------------------------------------- kernels
@@ -516,21 +543,28 @@ def assign_flux(fp, fc, pbins, cbins, w, basis_p, basis_c, target_c,
 
 def pair_assign(fp, fc, pbins, cbins, centers, center_bin, valid,
                 n_states=None, basis_p=None, basis_c=None, target_p=None,
-                target_c=None, order=None):
+                target_c=None, order=None, return_scores=False):
     """H4 (``_assign_call``): nearest valid same-bin center ids for parent
     and child feature rows, plus an optional override epilogue (``order``
     None, ``"flux"`` or ``"predict"``; masks may be None). ``fp=None``
     assigns the ``fc`` rows alone and returns ``cidx``; otherwise returns
     ``(pidx, cidx)``, int32. Any feature width: on CUDA the rows are
     grouped by bin first (``_bin_tiles``) and the kernel scores each tile
-    of one bin against that bin's centers only."""
+    of one bin against that bin's centers only.
+
+    ``return_scores`` (only with ``order=None``) also returns each row's
+    f32 winning score from the same launch, ``+inf`` where the row's bin
+    has no valid center (its id is then 0): ``(cidx, cmin)`` or ``(pidx,
+    cidx, pmin, cmin)``. The ids are the same with or without it."""
     if not _on_cuda(fc, "fc"):
         return pair_assign_plain(
             fp, fc, pbins, cbins, centers, center_bin, valid,
             n_states=n_states, basis_p=basis_p, basis_c=basis_c,
             target_p=target_p, target_c=target_c, order=order,
+            return_scores=return_scores,
         )
     _check_order(order, n_states)
+    _check_scores(return_scores, order)
     dev = fc.device
     N, F = fc.shape
     pair = fp is not None
@@ -550,6 +584,10 @@ def pair_assign(fp, fc, pbins, cbins, centers, center_bin, valid,
         _check_states(n_states)
     cidx = torch.empty(N, dtype=torch.int32, device=dev)
     pidx = torch.empty(N, dtype=torch.int32, device=dev) if pair else None
+    cmin = pmin = None
+    if return_scores:
+        cmin = torch.empty(N, dtype=torch.float32, device=dev)
+        pmin = torch.empty(N, dtype=torch.float32, device=dev) if pair else None
     if N > 0:
         row_order, cperm, tiles = _bin_tiles(pbins if pair else None, cbins,
                                              center_bin, valid)
@@ -560,10 +598,14 @@ def pair_assign(fp, fc, pbins, cbins, centers, center_bin, valid,
                 _ptr(target_p), _ptr(target_c), _ptr(row_order), _ptr(tiles),
                 tiles.shape[0], _ptr(cperm), _ptr(centers), _ptr(c2), N, F,
                 n_states or 0, _ORDERS[order], _ptr(pidx), _ptr(cidx),
-                _stream(dev),
+                _ptr(pmin), _ptr(cmin), _stream(dev),
             )
         check(err, "pair_assign")
         pair_assign.launches += 1
+        if return_scores:
+            pair_assign.score_launches += 1
+    if return_scores:
+        return (cidx, cmin) if not pair else (pidx, cidx, pmin, cmin)
     return cidx if not pair else (pidx, cidx)
 
 
@@ -575,11 +617,15 @@ KERNELS = {
 }
 for _fn in KERNELS.values():
     _fn.launches = 0
+# H4 launches with the score output (the mesh's model axis), also counted
+# in pair_assign.launches
+pair_assign.score_launches = 0
 
 
 def reset_launch_counts():
     for fn in KERNELS.values():
         fn.launches = 0
+    pair_assign.score_launches = 0
 
 
 def launch_counts():

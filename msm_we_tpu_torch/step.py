@@ -5,11 +5,11 @@ Counterpart of the single-device part of ``msm_we_tpu/parallel/sharded.py``
 ``_discretize_and_flux``, ``_scatter_flux``, ``fused_step_single``,
 ``steady_state_from_flux``, and the one-device forms of
 ``build_sharded_pair_assign`` / ``build_sharded_single_assign`` /
-``build_sharded_cluster_stats``). One
-device replaces the ('data', 'model') mesh, so there is no argmin combine
-and no psum. The assignment and flux go through the kernels of
-``ops/stratified_assign.py`` on CUDA tensors and their plain versions on
-CPU tensors.
+``build_sharded_cluster_stats``): what one rank computes on its rows.
+``parallel/sharded.py`` runs these over a ('data', 'model') mesh of ranks
+and adds the argmin combine and the all-reduce. The assignment and flux go
+through the kernels of ``ops/stratified_assign.py`` on CUDA tensors and
+their plain versions on CPU tensors.
 
 The center bank must be compact (valid centers first, in global-id order):
 the row index of the winning center is its global cluster id.

@@ -7,14 +7,15 @@ passes (bincount, sort + ``ufunc.reduceat``) over the host dtrajs, in
 float64. The device route (opt-in, for builds whose ids are still
 deferred) assigns the child rows on the model's device and reduces the
 child pcoords per cluster there (``step.cluster_stats``, f64 sums of the
-f32 pcoords); only four small tables come back.
+f32 pcoords; over a mesh ``parallel.sharded.build_sharded_cluster_stats``,
+each rank on its row block, the tables reduced over 'data'); only four
+small tables come back.
 """
 from __future__ import annotations
 
 import os
 
 import numpy as np
-import torch
 
 from ._logging import log
 
@@ -101,18 +102,21 @@ def get_cluster_centers(model):
     return order
 
 
-def _device_p1(model):
-    """The child pcoords as an (N, ndim) f32 tensor on the model's device,
-    cached per feature set."""
+def _device_p1(model, mesh=None):
+    """This rank's row block of the child pcoords as an (n, ndim) f32
+    tensor on the mesh's device (every row on one device), padded with NaN
+    (excluded from the statistics), cached per feature set and mesh
+    (default: the model's)."""
+    mesh = model._active_mesh() if mesh is None else mesh
     feats = model._featurize_all()
     cache = getattr(model, "_device_p1_cache", None)
-    if cache is not None and cache[0] is feats:
+    if cache is not None and cache[0] is feats and cache[2] is mesh:
         return cache[1]
     p1 = np.asarray(feats["pcoord1"], dtype=np.float32)
     if p1.ndim == 1:
         p1 = p1[:, None]
-    dev = torch.as_tensor(np.ascontiguousarray(p1), device=model.device)
-    model._device_p1_cache = (feats, dev)
+    dev = mesh.rows(p1, float("nan"))
+    model._device_p1_cache = (feats, dev, mesh)
     return dev
 
 
@@ -120,7 +124,8 @@ def _get_cluster_centers_device(model):
     """Device route of :func:`get_cluster_centers`: the child ids
     (``discretization.device_child_assign``, one H4 launch on CUDA) and the
     child pcoords stay on the device; four ``(k_max + 1, ndim)`` tables come
-    back.
+    back (reduced over the mesh's 'data' axis: each rank holds its row
+    block).
 
     Same semantics as the host route (NaN pcoords excluded per dimension,
     NaN centers for empty, basis and target rows, stable pcoord argsort)
@@ -128,15 +133,17 @@ def _get_cluster_centers_device(model):
     the f32 rounding of each pcoord, so two clusters whose means lie closer
     than that may swap places in the sort."""
     from .discretization import device_child_assign
-    from .step import cluster_stats
+    from .parallel.sharded import build_sharded_cluster_stats
 
     strat = model._strat
     n = model.n_clusters
     ndim = int(model.pcoord_ndim)
     k_max = int(strat.n_bins * strat.k)
+    mesh = model._active_mesh()
 
     cid_dev = device_child_assign(model, strat)
-    stats = cluster_stats(cid_dev, _device_p1(model), n, k_max)
+    stats = build_sharded_cluster_stats(mesh, k_max)(
+        cid_dev, _device_p1(model, mesh), n)
     counts, sums, vmin, vmax = (
         t[:n].cpu().numpy().astype(np.float64) for t in stats
     )

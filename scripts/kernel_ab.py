@@ -5,6 +5,7 @@ card in one sitting.
 
     python3 scripts/kernel_ab.py run --root DIR --save FILE [--reps 20]
     python3 scripts/kernel_ab.py compare FILE [FILE ...]
+    python3 scripts/kernel_ab.py builds --root DIR --data FILE [--reps 3]
 
 ``run`` imports the package from ``DIR`` (its kernels are built there at
 first use), runs H1 with features, H2 with dyadic f64 flux and H3 on the
@@ -16,7 +17,14 @@ hot-step tier the median step ms (host clock around a synchronised step)
 and the device ms of all its kernels a step, with the card's
 ``nvidia-smi`` name and power limit. ``compare`` prints, for each saved
 output, whether every file holds it bitwise equal to the first file's.
-Needs a CUDA device; imports no JAX.
+``builds`` times whole builds on the card with the package from ``DIR``:
+the default configuration (``chip_smoke.py``'s ``analysis`` build: block
+cross-validation, predict route) and the bench configuration (device
+pipeline, no validation) on the 101 x 10,000 synthetic run (seed 17,
+pickled to ``FILE`` by the first call, read by the others), one cold build
+and ``--reps`` warm ones each, and a host-only control (generating an 11 x
+2,000 run, numpy); one JSON line of seconds, stage seconds and JtargetSS.
+Run it alternately per tree. Needs a CUDA device; imports no JAX.
 """
 from __future__ import annotations
 
@@ -134,6 +142,58 @@ def run(root, save, reps):
     print(json.dumps(line), flush=True)
 
 
+def builds(root, data_path, reps):
+    import os
+    import pickle
+
+    sys.path.insert(0, root)
+    import logging
+
+    import numpy as np
+
+    from msm_we_tpu_torch.binning import RectilinearBinMapper
+    from msm_we_tpu_torch.data import ArrayWEDataset, generate_we_arrays
+    from msm_we_tpu_torch.model import modelWE
+
+    if not os.path.exists(data_path):
+        with open(data_path, "wb") as fh:
+            pickle.dump(generate_we_arrays(n_iterations=101, n_segments=10_000,
+                                           seed=17), fh)
+    with open(data_path, "rb") as fh:
+        data = pickle.load(fh)
+    mapper = RectilinearBinMapper([np.linspace(0, 10, 13)])
+    logging.getLogger("msm_we_tpu_torch").setLevel(logging.WARNING)
+
+    def build(bench):
+        model = modelWE(device="cuda")
+        kw = dict(cross_validation_groups=0, device_pipeline=True) if bench else {}
+        t0 = time.perf_counter()
+        model.build_analyze_model(
+            file_paths=ArrayWEDataset(data),
+            ref_struct={"coords": None, "nAtoms": 4, "coord_ndim": 3},
+            modelName="ab", basis_pcoord_bounds=[[9.0, 10.0]],
+            target_pcoord_bounds=[[0.0, 1.0]], dimreduce_method="pca", tau=1.0,
+            n_clusters=25, show_live_display=False,
+            step_kwargs={"clustering": {"user_bin_mapper": mapper,
+                                        "scan_small_batches": True}}, **kw)
+        return time.perf_counter() - t0, model
+
+    line = dict(root=root, nvidia_smi=_smi())
+    for name, bench in (("default", False), ("bench", True)):
+        cold, _m = build(bench)
+        warm = [build(bench) for _ in range(reps)]
+        model = warm[-1][1]
+        line[name] = dict(
+            cold_s=cold, warm_s=[t for t, _ in warm],
+            median_warm_s=sorted(t for t, _ in warm)[len(warm) // 2],
+            stages={n: t for n, t, _ in model.stage_timings.stages},
+            JtargetSS=float(model.JtargetSS))
+    t0 = time.perf_counter()
+    generate_we_arrays(n_iterations=11, n_segments=2_000, seed=3)
+    line["control_generate_s"] = time.perf_counter() - t0
+    print(json.dumps(line), flush=True)
+
+
 def compare(files):
     import torch
 
@@ -152,9 +212,16 @@ def main(argv=None):
     r.add_argument("--reps", type=int, default=20)
     c = sub.add_parser("compare")
     c.add_argument("files", nargs="+")
+    b = sub.add_parser("builds")
+    b.add_argument("--root", required=True)
+    b.add_argument("--data", required=True)
+    b.add_argument("--reps", type=int, default=3)
     args = ap.parse_args(argv)
     if args.cmd == "run":
         run(args.root, args.save, args.reps)
+        return 0
+    if args.cmd == "builds":
+        builds(args.root, args.data, args.reps)
         return 0
     return compare(args.files)
 

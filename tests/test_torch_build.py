@@ -457,10 +457,14 @@ def test_compat_methods_match_jax(west_h5, arrays, method, caplog):
         assert "boom" in table.columns[2]._cells[7]
     else:
         m = modelWE(device="cpu")
-        for call in (m.collect_iter_coordinates, m.enable_mesh,
+        for call in (m.collect_iter_coordinates,
                      lambda: m.set_topology("ref.pdb"), lambda: m.set_basis("bstate.pdb")):
             with pytest.raises(NotImplementedError, match="plugins and extended.py"):
                 call()
+        # enable_mesh is ported: without a process group, the (1, 1) mesh
+        mesh = m.enable_mesh()
+        assert m._mesh is mesh and not mesh.distributed
+        assert mesh.shape == {"data": 1, "model": 1}
 
 
 def test_update_cluster_structures_matches_jax(west_h5, arrays):
