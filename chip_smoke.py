@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``msm_we_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases device,build,kernels,main,analysis,access,routes,mesh,configs] [--out DIR]
+    python3 chip_smoke.py [--phases device,build,kernels,main,analysis,access,routes,mesh,plugins,configs] [--out DIR]
 
 Phases, each printing one JSON line:
 
@@ -117,6 +117,34 @@ Phases, each printing one JSON line:
    only its shard): the flux bitwise the one-rank flux. The phase's launch
    counts add the NCCL build's and every rank's; H3, H4 and H4's score
    form must launch.
+10. ``plugins`` (runs before ``configs``): ``extended``, the CLI and the
+   WESTPA drivers on the card, the launch counts reset before each counted
+   part; H4 must launch in each of (a)-(c). (a) ``ExtendedModelWE`` built
+   by the default build on the ``analysis`` data (101 x 10,000), its
+   JtargetSS bitwise a plain ``modelWE`` build's; then ``get_hflux``,
+   ``get_model_aristoffian``, the kh bins of the ``adaptive`` (k-means on
+   the card), ``uniform`` and ``log_uniform`` methods,
+   ``get_iter_aristoffian`` of the last iteration (10,000 rows through H4),
+   ``evolve_probability`` and the 1-D pcoord flux; the same calls at 30 x
+   200 on the card and on the CPU: ids equal except at near-ties, h, kh,
+   varh and the relaxed distribution within 1e-12 relative, every evolved
+   distribution summing to 1. (b) The CLI: ``info`` names the card;
+   ``generate`` and ``build`` with and without ``--device-pipeline`` (JSON
+   equal to the API sequence) where h5py imports, else ``build`` raises the
+   ``ImportError`` naming h5py; ``validate`` of (a)'s 30 x 200 card model
+   saved with its ids deferred (the command mints them on the card) equal
+   to the implied timescales and CK test of the in-memory model within
+   1e-12; ``set_topology``/``set_basis`` of a ``.dat`` file, and of a
+   ``.prmtop`` path without mdtraj the ``ImportError`` naming it. (c) The
+   drivers over the 101 x 10,000 run: ``build_hamsm_from_config`` bitwise
+   equal to ``build_analyze_model`` with the same arguments,
+   ``update_cluster_structures`` and ``start_state_entries`` (weights
+   summing to the clusters' pSS within 1e-6), ``write_restart_artifacts``
+   into a temporary directory, ``compute_optimized_bins_for_model`` and the
+   WESTPA wrapper under an in-process ``FuncBinMapper`` stand-in: its args
+   through a plain pickle round trip assign 100,000 extended pcoords on the
+   card, bitwise the live mapper's; ``compute_new_pcoord_map`` on 1,000
+   structures.
 
 The line before the last is the ``{"kernels": [...]}`` summary and the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -134,7 +162,7 @@ import time
 from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "main", "analysis", "access", "routes",
-          "mesh", "configs")
+          "mesh", "plugins", "configs")
 
 KERNEL_INFO = {
     "transform_assign_child": dict(
@@ -777,16 +805,18 @@ def phase_main(args, summary):
 
 
 def _default_build(data, device, n_clusters=25, n_atoms=4, dimreduce_method="pca",
-                   stratified=True, dim_reduce_kwargs=None, profile_dir=None):
+                   stratified=True, dim_reduce_kwargs=None, profile_dir=None,
+                   model_cls=None):
     """``build_analyze_model`` with its defaults (block cross-validation,
-    2 groups x 4 blocks; predict route) in the bench configuration."""
+    2 groups x 4 blocks; predict route) in the bench configuration, on a
+    ``modelWE`` (or ``model_cls``)."""
     import numpy as np
 
     from msm_we_tpu_torch.binning import RectilinearBinMapper
     from msm_we_tpu_torch.data import ArrayWEDataset
     from msm_we_tpu_torch.model import modelWE
 
-    model = modelWE(device=device)
+    model = (model_cls or modelWE)(device=device)
     step_kwargs = {"dimReduce": dim_reduce_kwargs or {}}
     if stratified:
         step_kwargs["clustering"] = {
@@ -2310,6 +2340,467 @@ def phase_mesh(args, summary, smi):
               seconds=time.perf_counter() - t_phase))
 
 
+# --------------------------------------------------------------- plugins
+
+PLUGIN_EDGES = (0.0, 10.0, 13)  # the default build's WE bin grid (12 bins)
+
+
+def _extended_calls(model):
+    """The extended analysis on a built ``ExtendedModelWE``, each call
+    timed and checked: the h-flux, kh and its variance, the kh bins of
+    three methods, kh of the last iteration's segments (H4 on the card for
+    10,000 rows), the evolved probabilities, the 1-D pcoord flux."""
+    import numpy as np
+
+    t = {}
+    t["get_hflux"], h = _timed(lambda: model.get_hflux(conv=1e-3, max_iters=2000))
+    t["get_model_aristoffian"], (kh, varh) = _timed(model.get_model_aristoffian)
+    require(np.isfinite(h).all() and np.isfinite(kh).all() and np.isfinite(varh).all(),
+            "h, kh or varh is not finite")
+    require(float(varh.min()) >= -1e-8 * max(float(np.abs(varh).max()), 1e-300),
+            f"varh is negative: {float(varh.min())}")
+    bins = {}
+    for method in ("adaptive", "uniform", "log_uniform"):
+        model.binMethod, model.allocationMethod, model.nB, model.nW = method, "adaptive", 10, 100
+        s, _ = _timed(model.get_model_steady_state_aristoffian)
+        require(np.isclose(model.alloc.sum(), 1.0) and np.isfinite(model.binObjective)
+                and model.binObjective >= 0, f"kh bins {method}: malformed allocation")
+        require(len(model.khbins_binEdges) == len(model.khbins_binCenters) + 1,
+                f"kh bins {method}: edges do not bound the centers")
+        bins[method] = dict(seconds=s, bins=int(len(model.khbins_binCenters)),
+                            objective=float(model.binObjective),
+                            walkers=int(model.walkers_per_bin.sum()))
+    last = int(model.maxIter)
+    t["get_iter_aristoffian"], kh_list = _timed(lambda: model.get_iter_aristoffian(last))
+    khf = np.asarray(kh).reshape(-1)
+    require(kh_list.shape == (model.nSeg, 1) and np.isfinite(kh_list).all()
+            and kh_list.min() >= khf.min() - 1e-12 and kh_list.max() <= khf.max() + 1e-12,
+            "get_iter_aristoffian gave kh outside the model's kh")
+    t["evolve_probability"], prob = _timed(lambda: model.evolve_probability(2000, 100))
+    rows_err = float(np.abs(prob.sum(axis=1) - 1.0).max())
+    require(rows_err <= 1e-8, f"evolved distributions sum to 1 within {rows_err}")
+    t["get_pcoord1D_fluxMatrix"], fm = _timed(lambda: model.get_pcoord1D_fluxMatrix(
+        0, 1, model.maxIter - 1, np.linspace(0.0, 10.0, 11)))
+    require(fm.shape == (10, 10) and (fm >= 0).all() and abs(fm.sum() - 1.0) <= 1e-6,
+            f"1-D pcoord flux sums to {fm.sum()}")
+    return dict(seconds=t, states=int(model.nBins), kh_bins=bins, iteration=last,
+                evolve_rows_max_err=rows_err, pcoord1d_flux_sum=float(fm.sum()))
+
+
+def _extended_parity(small):
+    """(a) The same calls on the card and on the CPU at 30 x 200: the
+    dtrajs and the last iteration's cluster ids equal except at near-ties,
+    h and kh within 1e-12 relative where the ids are equal, and the
+    evolved distributions each sum to 1."""
+    import numpy as np
+
+    from msm_we_tpu_torch.extended import ExtendedModelWE
+    from msm_we_tpu_torch.testing import near_tie_rows
+
+    _t, g = _default_build(small, "cuda", model_cls=ExtendedModelWE)
+    _t, c = _default_build(small, "cpu", model_cls=ExtendedModelWE)
+    for m in (g, c):
+        m.get_hflux(conv=1e-3, max_iters=2000)
+        m.get_model_aristoffian()
+    dg, dc = np.concatenate(g.dtrajs), np.concatenate(c.dtrajs)
+    flips = int((dg != dc).sum())
+    # The last iteration's children through each model's bank (the
+    # predictions _model_cluster_assign makes)
+    it = int(c.maxIter)
+    c.load_iter_data(it)
+    _p, child, _w = c._dataset.iter_coord_pairs(it)
+    pc = c.pcoord1List
+    feats = c.reduceCoordinates(np.nan_to_num(child)).astype(np.float32)
+    bins = c._bin_mapper.assign(np.nan_to_num(pc))
+    raw = [m._strat.predict(feats, bins, is_basis=c.is_WE_basis(pc),
+                            is_target=c.is_WE_target(pc)) for m in (g, c)]
+    bad = np.flatnonzero(raw[0] != raw[1])
+    if len(bad):
+        strat = c._strat
+        require(near_tie_rows(bad, raw[0], raw[1], feats, strat.we_remap[bins],
+                              *strat.compact_bank()).all(),
+                f"{len(bad)} cluster ids differ card vs CPU and are not near-ties")
+    elif not flips:
+        g.load_iter_data(it)
+        require(np.array_equal(g._model_cluster_assign(child, pc),
+                               c._model_cluster_assign(child, pc)),
+                "_model_cluster_assign differs card vs CPU")
+    res = dict(rows=int(len(dc)), dtraj_flips=flips, iteration_id_flips=int(len(bad)),
+               JtargetSS_gpu=float(g.JtargetSS), JtargetSS_cpu=float(c.JtargetSS))
+    for m in (g, c):
+        m.evolve_probability(2000, 100)
+        require(np.abs(m.probTransient.sum(axis=1) - 1.0).max() <= 1e-8,
+                "an evolved distribution does not sum to 1")
+    if flips:
+        require(flips <= 1e-3 * len(dc), f"{flips} dtraj rows flip card vs CPU")
+        return res, g
+    errs = {}
+    for name in ("h", "kh", "varh", "pEvolved"):
+        a, b = np.asarray(getattr(g, name), float), np.asarray(getattr(c, name), float)
+        errs[name] = float(np.abs(a - b).max() / max(float(np.abs(b).max()), 1e-300))
+        require(errs[name] <= 1e-12, f"{name} differs card vs CPU by {errs[name]}")
+    res["max_rel_err"] = errs
+    return res, g
+
+
+def _cli_api_build(path, flags):
+    """The port's API sequence the CLI's ``build`` drives with ``flags``
+    (stratified, default bin grid), on the card."""
+    import numpy as np
+
+    from msm_we_tpu_torch.binning import RectilinearBinMapper
+    from msm_we_tpu_torch.model import modelWE
+
+    model = modelWE(device="cuda")
+    model.initialize([path], {"coords": None, "nAtoms": 1, "coord_ndim": 3},
+                     "cli_model", basis_pcoord_bounds=[[9.0, 10.0]],
+                     target_pcoord_bounds=[[0.0, 1.0]], dim_reduce_method="none",
+                     tau=1.0, _suppress_boundary_warning=True)
+    model.device_pipeline = "--device-pipeline" in flags
+    if model.device_pipeline:
+        model.enable_mesh()
+    model.get_iterations()
+    model.get_coordSet(model.maxIter)
+    model.dimReduce()
+    ext = [0.0, 9.0, 10.0, 0.0, 1.0]
+    for i in range(1, model.maxIter):
+        d = model._dataset.iter_data(i)
+        for key in ("pcoord0", "pcoord1"):
+            ext += [float(np.nanmin(d[key][:, 0])), float(np.nanmax(d[key][:, 0]))]
+    lo, hi = min(ext), max(ext)
+    span = hi - lo
+    model.cluster_coordinates(n_clusters=5, stratified=True, user_bin_mapper=(
+        RectilinearBinMapper([np.linspace(lo - 0.001 * span, hi + 0.001 * span, 11)])))
+    model.get_fluxMatrix(1)
+    model.organize_fluxMatrix()
+    model.get_Tmatrix()
+    model.get_steady_state()
+    model.get_steady_state_target_flux()
+    return dict(n_clusters=int(model.n_clusters), n_lag=1, lagtime=float(model.lagtime),
+                JtargetSS=float(model.JtargetSS), pSS=[float(x) for x in model.pSS])
+
+
+def _cli_main(argv):
+    """``msm-we-tpu-torch argv`` with its standard output captured."""
+    import contextlib
+    import io
+
+    from msm_we_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    require(rc == 0, f"msm-we-tpu-torch {' '.join(argv)} exited {rc}")
+    return buf.getvalue()
+
+
+def _cli_checks(model, tmp_dir):
+    """(b) The CLI and the mdtraj surface on the card: ``info`` names the
+    card; ``generate`` and ``build`` (with and without
+    ``--device-pipeline``, each JSON equal to the API sequence) where h5py
+    imports, else ``build`` raises the ``ImportError`` naming h5py;
+    ``validate`` of ``model`` saved with its ids deferred (the command
+    materializes them on the card) equals the implied timescales and the
+    CK test of the in-memory model; ``set_topology`` of a ``.dat`` file,
+    and of a ``.prmtop`` path without mdtraj raises naming it."""
+    import importlib.util
+    import numpy as np
+    import torch
+
+    from msm_we_tpu_torch.model import modelWE
+    from msm_we_tpu_torch.ops.linalg import (
+        chapman_kolmogorov_from_flux,
+        implied_timescales_from_flux,
+        pcca_sets,
+    )
+
+    out = {}
+    info = _cli_main(["info"])
+    require(torch.cuda.get_device_name(0) in info, f"info does not name the card: {info}")
+    out["info"] = info.strip().splitlines()
+    path = os.path.join(tmp_dir, "cli_west.h5")
+    bounds = ["--basis", "9", "10", "--target", "0", "1"]
+    if importlib.util.find_spec("h5py") is None:
+        try:
+            _cli_main(["build", path, *bounds])
+        except ImportError as e:
+            require("h5py" in str(e), f"the ImportError does not name h5py: {e}")
+            out["build"] = dict(h5py=False, import_error=str(e)[:120])
+        else:
+            raise Failure("build on a path did not raise ImportError without h5py")
+    else:
+        _cli_main(["generate", path, "--iterations", "30", "--segments", "200",
+                   "--seed", "17"])
+        out["build"] = dict(h5py=True)
+        for extra in ([], ["--device-pipeline"]):
+            flags = ["--n-clusters", "5", "--stratified", "--lag", "1", *extra]
+            res_path = os.path.join(tmp_dir, "cli_build.json")
+            s, _ = _timed(lambda: _cli_main(["build", path, *bounds, *flags,
+                                             "--output", res_path]))
+            with open(res_path) as fh:
+                got = json.load(fh)
+            require(got == _cli_api_build(path, flags),
+                    f"build {extra} JSON differs from the API sequence")
+            out["build"]["device_pipeline" if extra else "host_route"] = dict(
+                seconds=s, JtargetSS=got["JtargetSS"])
+
+    # validate: the model saved with its ids deferred
+    lags = [0, 1, 2]
+    fms, lag_times = model._lagged_flux_matrices(lags, iters_to_use=None,
+                                                  drop_basis_target=True)
+    ts = implied_timescales_from_flux(fms, lag_times, n_timescales=3)
+    factors = np.rint(lag_times / lag_times[0]).astype(int)
+    sets, predicted, estimated = chapman_kolmogorov_from_flux(
+        fms, factors, sets=pcca_sets(fms[0], 2))
+    ids = np.concatenate(model.dtrajs)
+    saved = (model.dtrajs, model.pair_dtrajs, model._parent_idx, model._child_idx)
+    model.dtrajs = model.pair_dtrajs = model._parent_idx = model._child_idx = None
+    obj = os.path.join(tmp_dir, "cli_model.obj")
+    model.save(obj)
+    model.dtrajs, model.pair_dtrajs, model._parent_idx, model._child_idx = saved
+    res_path = os.path.join(tmp_dir, "cli_validate.json")
+    s, _ = _timed(lambda: _cli_main(["validate", obj, "--lags", *map(str, lags),
+                                     "--pcca-sets", "2", "--output", res_path]))
+    with open(res_path) as fh:
+        got = json.load(fh)
+
+    def close(a, b, what):
+        a = np.array(a, dtype=float)
+        b = np.array(b, dtype=float)
+        err = float(np.nanmax(np.abs(a - b)) / max(float(np.nanmax(np.abs(b))), 1e-300))
+        require(a.shape == b.shape and np.array_equal(np.isnan(a), np.isnan(b))
+                and err <= 1e-12, f"validate {what} differs by {err}")
+        return err
+
+    errs = dict(lag_times=close(got["lag_times"], lag_times, "lag times"),
+                implied_timescales=close(got["implied_timescales"], ts, "timescales"),
+                ck_predicted=close(got["ck_predicted"], predicted, "CK predicted"),
+                ck_estimated=close(got["ck_estimated"], estimated, "CK estimated"))
+    require(got["ck_sets"] == [[int(x) for x in S] for S in sets], "CK sets differ")
+    reloaded = modelWE.load(obj, device="cuda")
+    reloaded._ensure_discretized()
+    require(np.array_equal(np.concatenate(reloaded.dtrajs), ids),
+            "the ids minted on the card differ from the build's")
+    out["validate"] = dict(seconds=s, max_rel_err=errs, lags=lags)
+
+    # The mdtraj surface: .dat through numpy, a .prmtop path through mdtraj
+    dat = os.path.join(tmp_dir, "ref.dat")
+    np.savetxt(dat, np.arange(12.0).reshape(4, 3))
+    m = modelWE(device="cuda")
+    m.set_topology(dat)
+    m.set_basis(dat)
+    require(m.nAtoms == 1 and np.array_equal(m.reference_coord, np.loadtxt(dat))
+            and np.array_equal(m.basis_coords, np.loadtxt(dat)), "set_topology(.dat)")
+    out["topology_dat"] = True
+    if importlib.util.find_spec("mdtraj") is None:
+        try:
+            m.set_topology(os.path.join(tmp_dir, "ref.prmtop"))
+        except ImportError as e:
+            require("mdtraj" in str(e), f"the ImportError does not name mdtraj: {e}")
+            out["topology_prmtop"] = dict(mdtraj=False, import_error=str(e)[:80])
+        else:
+            raise Failure("set_topology(.prmtop) did not raise ImportError without mdtraj")
+    else:
+        out["topology_prmtop"] = dict(mdtraj=True, checked=False)
+    return out
+
+
+def _install_func_bin_mapper():
+    """An in-process stand-in for ``westpa.core.binning.FuncBinMapper``
+    (westpa is not installed on the card's machine): it keeps the
+    function, the bin count and the args. Returns the modules it added."""
+    import types
+
+    class FuncBinMapper:
+        def __init__(self, func, nbins, args=None, kwargs=None):
+            self.func, self.nbins, self.args = func, nbins, tuple(args or ())
+
+    binning = types.ModuleType("westpa.core.binning")
+    binning.FuncBinMapper = FuncBinMapper
+    core = types.ModuleType("westpa.core")
+    core.binning = binning
+    westpa = types.ModuleType("westpa")
+    westpa.core = core
+    added = {"westpa": westpa, "westpa.core": core, "westpa.core.binning": binning}
+    for name, mod in added.items():
+        require(name not in sys.modules, f"{name} is already imported")
+        sys.modules[name] = mod
+    return added
+
+
+def _driver_checks(data, tmp_dir):
+    """(c) The WESTPA drivers on the card over the 101 x 10,000 run."""
+    import pickle
+    import shutil
+
+    import numpy as np
+
+    from msm_we_tpu_torch.binning import RectilinearBinMapper
+    from msm_we_tpu_torch.data import ArrayWEDataset
+    from msm_we_tpu_torch.model import modelWE
+    from msm_we_tpu_torch.westpa_plugins.hamsm_driver import build_hamsm_from_config
+    from msm_we_tpu_torch.westpa_plugins.optimization_driver import (
+        _wrap_for_westpa,
+        compute_new_pcoord_map,
+        compute_optimized_bins_for_model,
+    )
+    from msm_we_tpu_torch.westpa_plugins.restart_driver import (
+        start_state_entries,
+        write_restart_artifacts,
+    )
+
+    out, total = {}, {}
+    ref = {"coords": None, "nAtoms": 4, "coord_ndim": 3}
+    config = dict(model_name="smoke_driver", n_clusters=25, tau=1.0,
+                  basis_pcoord_bounds=[[9.0, 10.0]], target_pcoord_bounds=[[0.0, 1.0]],
+                  dimreduce_method="pca", ref_pdb_file=ref, show_live_display=False,
+                  user_bin_mapper=RectilinearBinMapper([np.linspace(*PLUGIN_EDGES)]),
+                  device="cuda")
+    (s, model), counts = _counted(lambda: _timed(
+        lambda: build_hamsm_from_config(config, ArrayWEDataset(data))))
+    _add_counts(total, counts)
+    require(model.device.type == "cuda", "the driver's model is not on the card")
+    plain = modelWE(device="cuda")
+    s_plain, _ = _timed(lambda: plain.build_analyze_model(
+        file_paths=ArrayWEDataset(data), ref_struct=ref, modelName="smoke_driver",
+        basis_pcoord_bounds=[[9.0, 10.0]], target_pcoord_bounds=[[0.0, 1.0]],
+        dimreduce_method="pca", n_clusters=25, tau=1.0,
+        step_kwargs={"dimReduce": {"use_weights": True, "variance_cutoff": 0.95,
+                                   "first_iter": 1},
+                     "clustering": {"first_cluster_iter": 1,
+                                    "user_bin_mapper": config["user_bin_mapper"]}},
+        fluxmatrix_iters=[1, -1], allow_validation_failure=True,
+        cross_validation_groups=2, device_pipeline=False, show_live_display=False))
+    require(model.JtargetSS == plain.JtargetSS
+            and np.array_equal(np.concatenate(model.dtrajs), np.concatenate(plain.dtrajs)),
+            "build_hamsm_from_config differs from build_analyze_model")
+    del plain
+    out["build"] = dict(seconds=s, seconds_plain=s_plain, JtargetSS=float(model.JtargetSS),
+                        states=int(model.nBins), bitwise_equal_to_plain=True)
+
+    s, _ = _timed(lambda: model.update_cluster_structures(build_pcoord_cache=True))
+    entries = list(start_state_entries(model, model.pSS))
+    weight = float(sum(w for _b, _s, w, _x in entries))
+    want = float(np.asarray(model.pSS)[: model.n_clusters].sum())
+    require(entries and abs(weight - want) <= 1e-6 * want,
+            f"start-state weights sum to {weight}, pSS to {want}")
+    out["start_states"] = dict(seconds=s, entries=len(entries), weight=weight)
+    restart_dir = os.path.join(tmp_dir, "restart0")
+    s, sstates = _timed(lambda: write_restart_artifacts(model, restart_dir, store_h5=True))
+    with open(sstates) as fh:
+        lines = fh.read().strip().splitlines()
+    require(len(lines) == len(entries) and all(ln.split()[2].startswith("hdf:")
+                                               for ln in lines), "startstates.txt")
+    out["restart_artifacts"] = dict(seconds=s, lines=len(lines), pickle_bytes=os.path.getsize(
+        os.path.join(restart_dir, "hamsm.obj")))
+    shutil.rmtree(restart_dir)
+
+    (s, mapper), counts = _counted(lambda: _timed(
+        lambda: compute_optimized_bins_for_model(model, n_active_bins=12)))
+    _add_counts(total, counts)
+    require(mapper.clusterer.strat.device.type == "cuda", "the mapper's bank left the card")
+    feats = model._featurize_all()
+    start = len(feats["weights"]) // 5
+    rows = slice(start, start + 100_000)
+    coords = np.column_stack([feats["pcoord1"][rows], feats["child"][rows]]).astype(np.float32)
+    live, counts = _counted(lambda: mapper.assign(coords))
+    _add_counts(total, counts)
+    added = _install_func_bin_mapper()
+    try:
+        wrapped = _wrap_for_westpa(mapper)
+        args = pickle.loads(pickle.dumps(wrapped.args))
+    finally:
+        for name in added:
+            sys.modules.pop(name, None)
+    require(args[0].clusterer.strat.device.type == "cpu" and args[1] == "cuda",
+            "the pickled args do not hold a CPU bank and the device 'cuda'")
+    output = np.full(len(coords), -1)
+    mask = np.ones(len(coords), bool)
+    (s_assign, _), counts = _counted(lambda: _timed(
+        lambda: wrapped.func(coords, mask, output, *args)))
+    _add_counts(total, counts)
+    require(counts["pair_assign"] > 0, "the unpickled mapper did not launch H4")
+    require(args[0].clusterer.strat.device.type == "cuda",
+            "the unpickled bank is not on the card after an assignment")
+    require(np.array_equal(output, live), "the unpickled mapper's ids differ from the live one's")
+    out["optimized_bins"] = dict(seconds=s, rows=len(coords), assign_s=s_assign,
+                                 round_trip_bitwise=True, bank_device="cuda")
+
+    rng = np.random.default_rng(3)
+    coord_map = {i: rng.normal(size=(4, 3)).astype(np.float32) for i in range(1000)}
+    s, pcoord_map = _timed(lambda: compute_new_pcoord_map(
+        model, coord_map, lambda i: np.array([float(i)])))
+    require(len(pcoord_map) == 1000 and pcoord_map[7].shape == (1 + model.ndim,)
+            and pcoord_map[7][0] == 7.0, "compute_new_pcoord_map malformed")
+    out["new_pcoord_map"] = dict(seconds=s, structures=1000)
+    return out, total
+
+
+def phase_plugins(args, summary, smi):
+    """``extended``, the CLI and the WESTPA drivers, each over H4 on the
+    card."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from msm_we_tpu_torch.data import generate_we_arrays
+    from msm_we_tpu_torch.extended import ExtendedModelWE
+    from msm_we_tpu_torch.ops import stratified_assign as sa
+
+    t_phase = time.perf_counter()
+    data = summary.get("analysis_data")
+    if data is None:
+        data = generate_we_arrays(n_iterations=101, n_segments=10_000, seed=17)
+        summary["analysis_data"] = data
+    small = generate_we_arrays(n_iterations=30, n_segments=200, seed=17)
+    tmp_dir = tempfile.mkdtemp(prefix="chip_smoke_plugins_")
+    total = {}
+    torch.cuda.synchronize()
+    sa.reset_launch_counts()
+    try:
+        # (a) ExtendedModelWE at full size, then card against CPU
+        (s_ext, ext), build_counts = _counted(lambda: _default_build(
+            data, "cuda", model_cls=ExtendedModelWE))
+        _add_counts(total, build_counts)
+        s_plain, plain = _default_build(data, "cuda")
+        require(ext.JtargetSS == plain.JtargetSS
+                and [v.JtargetSS for v in ext.validation_models]
+                == [v.JtargetSS for v in plain.validation_models],
+                "the ExtendedModelWE build differs from the plain build")
+        del plain
+        calls, counts = _counted(lambda: _extended_calls(ext))
+        _add_counts(total, counts)
+        require(counts["pair_assign"] > 0, "the extended calls did not launch H4")
+        emit(dict(phase="plugins", check="extended", segments=int(sum(len(d) for d in ext.dtrajs)),
+                  build_seconds=s_ext, plain_build_seconds=s_plain,
+                  JtargetSS=float(ext.JtargetSS), bitwise_equal_to_plain=True,
+                  launch_counts_build=build_counts, launch_counts_calls=counts, **calls))
+        del ext
+        (parity, small_model), counts = _counted(lambda: _extended_parity(small))
+        _add_counts(total, counts)
+        emit(dict(phase="plugins", check="extended_parity_30x200", **parity))
+        a_counts = dict(total)
+        require(a_counts.get("pair_assign", 0) > 0, "H4 never launched in (a)")
+
+        # (b) the CLI
+        b, counts = _counted(lambda: _cli_checks(small_model, tmp_dir))
+        _add_counts(total, counts)
+        require(counts["pair_assign"] > 0, "H4 never launched in the CLI checks")
+        emit(dict(phase="plugins", check="cli", launch_counts=counts, **b))
+
+        # (c) the drivers
+        c, counts = _driver_checks(data, tmp_dir)
+        _add_counts(total, counts)
+        require(counts.get("pair_assign", 0) > 0, "H4 never launched in the drivers")
+        emit(dict(phase="plugins", check="drivers", launch_counts=counts, **c))
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+    summary["launches_plugins"] = total
+    emit(dict(phase="plugins", check="launches", launch_counts=total,
+              seconds=time.perf_counter() - t_phase, nvidia_smi=smi))
+
+
 # --------------------------------------------------------------- configs
 
 
@@ -2680,6 +3171,8 @@ def main(argv=None):
         phase_routes(args, summary, smi)
     if "mesh" in phases:
         phase_mesh(args, summary, smi)
+    if "plugins" in phases:
+        phase_plugins(args, summary, smi)
     if "configs" in phases:
         phase_configs(args, summary)
 
@@ -2689,6 +3182,7 @@ def main(argv=None):
     launches_access = summary.get("launches_access", {})
     launches_routes = summary.get("launches_routes", {})
     launches_mesh = summary.get("launches_mesh", {})
+    launches_plugins = summary.get("launches_plugins", {})
     kernels = []
     for name, info in KERNEL_INFO.items():
         k = summary.get(name, {})
@@ -2703,6 +3197,7 @@ def main(argv=None):
             launches_access=launches_access.get(name),
             launches_routes=launches_routes.get(name),
             launches_mesh=launches_mesh.get(name),
+            launches_plugins=launches_plugins.get(name),
             max_abs_err=k.get("max_abs_err"), ms=k.get("ms"),
             plain_ms=k.get("plain_ms"), bound_ms=k.get("bound_ms"),
             bound_by=k.get("bound_by"), library_ms=None, mm_ms=k.get("mm_ms"),

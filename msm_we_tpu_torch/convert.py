@@ -19,7 +19,7 @@ import numpy as np
 
 from .binning import RectilinearBinMapper
 from .model import StratifiedClustersShim, _AggregateClustersShim
-from .ops.pca import PCAModel, TICAModel
+from .ops.pca import IdentityCoordinates, PCAModel, TICAModel
 from .ops.stratified import StratifiedKmeans
 
 __all__ = [
@@ -67,10 +67,10 @@ def aggregated_state_from_arrays(model, *, centers):
     return model
 
 
-def fitted_state_from_arrays(model, *, pca_mean, pca_components,
-                             pca_explained_variance, centers, counts,
-                             center_bin, valid, initialized, we_remap,
-                             bin_edges, seed=0):
+def fitted_state_from_arrays(model, *, centers, counts, center_bin, valid,
+                             initialized, we_remap, bin_edges, pca_mean=None,
+                             pca_components=None, pca_explained_variance=None,
+                             seed=0):
     """Install a fitted PCA transform, stratified bank and rectilinear bin
     mapper into ``model`` (after ``initialize``/``get_iterations``), leaving
     it as ``cluster_coordinates`` would before its discretization.
@@ -78,21 +78,26 @@ def fitted_state_from_arrays(model, *, pca_mean, pca_components,
     ``centers`` (K, d), ``counts`` (K,), ``center_bin`` (K,), ``valid``
     (K,) are the flat bank (``K = n_bins * k``, bins contiguous);
     ``initialized`` and ``we_remap`` are per WE bin; ``bin_edges`` is one
-    ascending edge array per pcoord dimension. Call
+    ascending edge array per pcoord dimension. Without ``pca_components``
+    the features are the processed coordinates themselves (the
+    ``dim_reduce_method="none"`` identity). Call
     ``model.launch_discretization()`` next.
     """
-    components = np.asarray(pca_components)
-    model.coordinates = PCAModel(
-        np.asarray(pca_mean), components, np.asarray(pca_explained_variance),
-        device=model.device,
-    )
-    model.ndim = components.shape[0]
-
     strat = _bank_from_arrays(centers, counts, center_bin, valid, initialized,
                               we_remap, seed, model.device)
-    if components.shape[0] != strat.d:
+    if pca_components is None:
+        model.coordinates = IdentityCoordinates()
+        model.ndim = strat.d
+    else:
+        components = np.asarray(pca_components)
+        model.coordinates = PCAModel(
+            np.asarray(pca_mean), components, np.asarray(pca_explained_variance),
+            device=model.device,
+        )
+        model.ndim = components.shape[0]
+    if model.ndim != strat.d:
         raise ValueError(
-            f"centers have {strat.d} features, the transform {components.shape[0]}")
+            f"centers have {strat.d} features, the transform {model.ndim}")
 
     model._bin_mapper = RectilinearBinMapper(bin_edges)
     model._strat = strat

@@ -47,8 +47,6 @@ float64.
 The data come from a list of west.h5 paths, read by
 :class:`~msm_we_tpu_torch.data.WEDataset` (this needs h5py), or in memory as
 an :class:`~msm_we_tpu_torch.data.ArrayWEDataset` passed in their place.
-What the port does not cover yet raises ``NotImplementedError`` naming its
-ROADMAP entry.
 """
 from __future__ import annotations
 
@@ -62,7 +60,7 @@ from . import cleaning as _cleaning
 from . import discretization as _discretization
 from . import fluxmatrix as _fluxmatrix
 from ._device import as_device
-from ._logging import log
+from ._logging import ProgressBar, log  # noqa: F401  (re-exported, as the JAX package does)
 from .binning import find_nearest_bin
 from .data.arrays import ArrayWEDataset
 from .data.westh5 import WEDataset
@@ -74,12 +72,6 @@ from .ops.pca import IdentityCoordinates, MomentAccumulator, PairMomentAccumulat
 from .ops.stratified import StratifiedKmeans
 
 SUPPORTED_DIMREDUCE = ["none", "pca", "tica", "vamp", "batch-pca"]
-
-
-def _not_ported(what, entry):
-    return NotImplementedError(
-        f"{what} is not ported to msm_we_tpu_torch yet (ROADMAP, queue 1: {entry})"
-    )
 
 
 def default_process_coordinates(coords):
@@ -97,10 +89,7 @@ class _BinModelView:
 
     @property
     def cluster_centers_(self):
-        strat = self._strat
-        strat._sync_host()
-        rows = slice(self._bin * strat.k, (self._bin + 1) * strat.k)
-        return strat.centers[rows][strat.valid[rows]]
+        return self._strat.centers_of_bin(self._bin)
 
 
 class StratifiedClustersShim:
@@ -254,6 +243,23 @@ class modelWE:
         self._fluxMatrixParams = None
         self._cluster_seed = 0
         self.post_cluster_model = None
+        # The JAX package's defaults for what later stages fill in
+        self.reference_structure = None
+        self.reference_coord = None
+        self.nAtoms = None
+        self.coord_ndim = 3
+        self.target_bin_center = None
+        self.basis_bin_center = None
+        self.slope_overcorrected = None
+        self.targetRMSD_all = None
+        self.removed_clusters = []
+        self.cluster_structures = None
+        self.cluster_structure_weights = None
+        self.structure_iteration_segments = None
+        self.pcoord_cache = None
+        self.validation_models = []
+        self.validation_iterations = []
+        self.pre_discretization_model = None
 
     # ------------------------------------------------------------------ init
     def initialize(self, fileSpecifier, refPDBfile, modelName,
@@ -455,22 +461,63 @@ class modelWE:
         return masks
 
     def set_topology(self, topology):
-        """A dict of ``coords``/``nAtoms``/``coord_ndim`` (mdtraj
-        topologies are not supported by the port)."""
-        if not isinstance(topology, dict):
-            raise _not_ported("non-dict topologies (mdtraj)", "plugins and extended.py")
-        self.reference_coord = topology.get("coords")
-        self.nAtoms = topology["nAtoms"]
-        self.coord_ndim = topology["coord_ndim"]
+        """Reference ``set_topology`` (``msm_we.py:1011-1078``): a dict of
+        ``coords``/``nAtoms``/``coord_ndim``; a ``.dat`` path (read with
+        numpy, no mdtraj); a ``.prmtop`` or any other path, loaded with
+        mdtraj (imported here); or an mdtraj object (anything with
+        ``_xyz``)."""
+        if isinstance(topology, dict):
+            self.reference_coord = topology.get("coords")
+            self.nAtoms = topology["nAtoms"]
+            self.coord_ndim = topology["coord_ndim"]
+            return
+        if isinstance(topology, str):
+            if topology.endswith("dat"):
+                self.reference_coord = np.loadtxt(topology)
+                self.nAtoms = 1
+                self.coord_ndim = 3
+                return
+            import mdtraj as md
+
+            if topology.endswith("prmtop"):
+                struct = md.load_prmtop(topology)
+                self.reference_structure = struct
+                self.nAtoms = struct.n_atoms
+                self.coord_ndim = 3
+                return
+            struct = md.load(topology)
+            self.reference_structure = struct
+            self.reference_coord = np.squeeze(struct._xyz)
+            self.nAtoms = struct.topology.n_atoms
+            self.coord_ndim = 3
+            return
+        if hasattr(topology, "_xyz"):
+            self.reference_structure = topology
+            self.reference_coord = np.squeeze(topology._xyz)
+            self.nAtoms = topology.topology.n_atoms
+            self.coord_ndim = 3
+            return
+        raise NotImplementedError("Unsupported topology")
 
     def set_basis(self, basis):
-        """A dict with ``coords``: the start structure that lagged
-        transitions substitute for lineages recycled inside the window
-        (files and mdtraj objects are not supported by the port)."""
-        if not isinstance(basis, dict):
-            raise _not_ported("non-dict basis structures (files, mdtraj)",
-                              "plugins and extended.py")
-        self.basis_coords = basis["coords"]
+        """The start structure that lagged transitions substitute for
+        lineages recycled inside the window: a dict with ``coords``, a
+        ``.dat`` path (numpy), another path (mdtraj) or an mdtraj object."""
+        if isinstance(basis, dict):
+            self.basis_coords = basis["coords"]
+            return
+        if isinstance(basis, str):
+            if basis.endswith("dat"):
+                self.basis_coords = np.loadtxt(basis)
+                return
+            import mdtraj as md
+
+            self.basis_coords = np.squeeze(md.load(basis)._xyz)
+            return
+        if hasattr(basis, "_xyz"):
+            self.basis_coords = np.squeeze(basis._xyz)
+            return
+        raise NotImplementedError("Unsupported basis")
 
     @property
     def n_lag(self):
@@ -819,8 +866,8 @@ class modelWE:
                            first_cluster_iter=None, use_ray=True,
                            bin_iteration=2, iters_to_use=None,
                            user_bin_mapper=None, progress_bar=None,
-                           scan_small_batches=False,
-                           defer_discretization=False, **_cluster_args):
+                           defer_discretization=False,
+                           scan_small_batches=False, **_cluster_args):
         """Per-WE-bin stratified clustering (reference ``_clustering.py:525-918``).
 
         Accumulates iterations until every seen WE bin has >= n_clusters
@@ -1651,9 +1698,38 @@ class modelWE:
         pass
 
     def collect_iter_coordinates(self, **kwargs):
-        """Augmenting west.h5 files with segment coordinates needs mdtraj
-        and the collection script, which the port does not cover."""
-        raise _not_ported("collect_iter_coordinates", "plugins and extended.py")
+        """Augment the model's west.h5 files with segment coordinates
+        through :func:`msm_we_tpu_torch.scripts.augment_west_h5` (mdtraj and
+        h5py, imported there). The topology defaults to the model's
+        ``refPDBfile`` (``topology_path=`` overrides it); ``seg_dir_format``,
+        ``parent_filename``, ``child_filename``, ``auxpath`` (default the
+        model's) and ``overwrite`` pass through. Every complete iteration
+        is augmented. Returns the total number of iterations augmented
+        across files."""
+        import os
+
+        from .scripts.collect_coordinates import augment_west_h5
+
+        log.warning(
+            "collect_iter_coordinates assumes a WESTPA traj_segs/ directory "
+            "layout -- be sure it matches your simulation output "
+            "(reference `_data.py:441-444`)."
+        )
+        topology = kwargs.pop("topology_path", getattr(self, "refPDBfile", None))
+        if isinstance(topology, os.PathLike):
+            topology = os.fspath(topology)
+        if not isinstance(topology, str):
+            raise ValueError(
+                "collect_iter_coordinates needs a topology file path; the "
+                "model was initialized with a non-path topology. Pass "
+                "topology_path=..."
+            )
+        kwargs.setdefault("auxpath", self.auxpath)
+        if self._dataset is not None:
+            # Release cached read handles before the append opens
+            self._dataset.close()
+        return sum(augment_west_h5(west_file, topology, **kwargs)
+                   for west_file in self.fileList)
 
     def enable_mesh(self, mesh=None):
         """Run the device routes over a ('data', 'model') mesh of ranks.

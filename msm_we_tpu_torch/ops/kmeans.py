@@ -29,6 +29,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import as_device
+
 __all__ = [
     "pairwise_dist2",
     "assign_flat",
@@ -342,13 +344,14 @@ def seed_bin(seed, X, w, k):
 
 
 def kmeans_fit(X, w, k, seed=0, n_iter=50, minibatch=False, batch_size=4096,
-               device="cpu", return_init=False):
-    """Full weighted k-means fit on ``device`` (JAX ``kmeans_fit``):
-    k-means++ from a generator seeded ``seed``, then ``n_iter`` Lloyd sweeps
-    (or one streaming minibatch pass when ``minibatch`` and the data
-    exceed ``batch_size``), then the final assignment. ``w`` None weighs
-    every row 1. Returns numpy ``(centers, ids)``, and the k-means++ row
-    indices with ``return_init``."""
+               device="cuda", return_init=False):
+    """Full weighted k-means fit on ``device``, the card by default (JAX
+    ``kmeans_fit``): k-means++ from a generator seeded ``seed``, then
+    ``n_iter`` Lloyd sweeps (or one streaming minibatch pass when
+    ``minibatch`` and the data exceed ``batch_size``), then the final
+    assignment. ``w`` None weighs every row 1. Returns numpy ``(centers,
+    ids)``, and the k-means++ row indices with ``return_init``."""
+    device = as_device(device)
     X = torch.as_tensor(np.asarray(X, np.float32), device=device).contiguous()
     w = (torch.ones(X.shape[0], dtype=torch.float32, device=device) if w is None
          else torch.as_tensor(np.asarray(w, np.float32), device=device))

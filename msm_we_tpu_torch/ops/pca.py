@@ -58,6 +58,10 @@ class IdentityCoordinates:
         return coords
 
 
+# Reference import-path parity (``from ... import Coordinates``)
+Coordinates = IdentityCoordinates
+
+
 class MomentAccumulator:
     """Streaming first/second moments for PCA, combined across batches in
     float64. ``dtype=np.float32`` computes each batch's second moment as an

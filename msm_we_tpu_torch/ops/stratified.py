@@ -119,12 +119,13 @@ class StratifiedKmeans:
     """Per-WE-bin streaming k-means over a flattened center bank.
 
     ``seed``: bin ``b`` seeds with ``seed + b``. ``device``: where the
-    device-family state and assignments live.
+    device-family state and assignments live (the card by default; a CPU
+    caller passes ``device="cpu"``).
     """
 
     mesh = None  # set by use_mesh() for predictions over a mesh of ranks
 
-    def __init__(self, n_bins, k_per_bin, n_features, seed=0, device="cpu"):
+    def __init__(self, n_bins, k_per_bin, n_features, seed=0, device="cuda"):
         self.n_bins = int(n_bins)
         self.k = int(k_per_bin)
         self.d = int(n_features)
@@ -188,6 +189,12 @@ class StratifiedKmeans:
         self._sync_host()
         self.device = as_device(device)
         return self
+
+    def centers_of_bin(self, b):
+        """Valid centers of bin ``b``, in global-id order (compat view)."""
+        self._sync_host()
+        rows = slice(b * self.k, (b + 1) * self.k)
+        return self.centers[rows][self.valid[rows]]
 
     def _device_meta(self):
         """``center_bin``/``valid``/``initialized`` as device tensors."""

@@ -224,7 +224,7 @@ def test_stratified_predict_matches_jax(arrays):
     n_bins, k, d = 3, 4, 5
     X_fit = rng.normal(size=(90, d)).astype(np.float32)
     bins_fit = np.repeat(np.arange(n_bins), 30)
-    j, p = JaxStrat(n_bins, k, d, seed=4), StratifiedKmeans(n_bins, k, d, seed=4)
+    j, p = JaxStrat(n_bins, k, d, seed=4), StratifiedKmeans(n_bins, k, d, seed=4, device="cpu")
     j.partial_fit(X_fit, bins_fit)
     p.partial_fit(X_fit, bins_fit)
     np.testing.assert_array_equal(p.centers, j.centers)
@@ -244,7 +244,7 @@ def test_device_family_seeding_is_not_ported():
     (tests/test_torch_seeding.py holds it to the JAX package)."""
     from msm_we_tpu_torch.ops.kmeans import seed_bin
 
-    s = StratifiedKmeans(1, 2, 3, seed=5)
+    s = StratifiedKmeans(1, 2, 3, seed=5, device="cpu")
     X = np.random.default_rng(0).normal(size=(HOST_BATCH_THRESHOLD, 3)).astype(np.float32)
     assert s.partial_fit(X, np.zeros(len(X), int)) == {0}
     assert s.seeded_by_family == {"host": 0, "device": 1}
@@ -255,12 +255,14 @@ def test_device_family_seeding_is_not_ported():
 
 @pytest.mark.parametrize("change", ["mdtraj", "bin_mapper", "profile_dir"])
 def test_unported_configurations_raise(arrays, change, tmp_path):
-    """mdtraj topologies are not ported and raise, naming their ROADMAP
-    entry. A missing ``user_bin_mapper`` is read from the west.h5, which
-    without westpa (or on in-memory data) raises the JAX package's
-    ``RuntimeError``; ``profile_dir`` writes a trace and changes nothing."""
+    """A topology path other than ``.dat`` loads through mdtraj, which is
+    not installed here, so the build raises the ``ImportError`` naming it
+    (it once raised as not ported). A missing ``user_bin_mapper`` is read
+    from the west.h5, which without westpa (or on in-memory data) raises
+    the JAX package's ``RuntimeError``; ``profile_dir`` writes a trace and
+    changes nothing."""
     if change == "mdtraj":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ImportError, match="mdtraj"):
             _port_build(arrays, True, ref_struct="topology.pdb")
     elif change == "bin_mapper":
         with pytest.raises(RuntimeError, match="msm_we_tpu_torch.binning"):
@@ -329,9 +331,10 @@ def test_entry_points_default_to_the_card(entry_point, tmp_path):
 
 
 def test_port_imports_no_jax_h5py_or_networkx():
-    """In a fresh interpreter the port, its reader module, a tiny CPU build
-    and a fitted ``NonMarkovModel`` pull in none of the JAX package's
-    stack."""
+    """In a fresh interpreter the port, its reader module, the extended
+    analysis, the CLI, the scripts and every WESTPA driver module, a tiny
+    CPU build and a fitted ``NonMarkovModel`` pull in none of the JAX
+    package's stack, nor h5py, mdtraj, westpa or matplotlib."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = textwrap.dedent(f"""
         import sys
@@ -343,6 +346,13 @@ def test_port_imports_no_jax_h5py_or_networkx():
         import msm_we_tpu_torch.entry, msm_we_tpu_torch.convert
         import msm_we_tpu_torch.data.westh5, msm_we_tpu_torch.tracing
         import msm_we_tpu_torch.optimization, msm_we_tpu_torch.plotting
+        import msm_we_tpu_torch.extended, msm_we_tpu_torch.cli, msm_we_tpu_torch.scripts
+        import msm_we_tpu_torch.westpa_plugins.hamsm_driver
+        import msm_we_tpu_torch.westpa_plugins.restart_driver
+        import msm_we_tpu_torch.westpa_plugins.optimization_driver
+        import msm_we_tpu_torch.westpa_plugins.augmentation_driver
+        from msm_we_tpu_torch import ExtendedModelWE
+        from msm_we_tpu_torch.model import ProgressBar
         from msm_we_tpu_torch.msm import MatrixFPT, NonMarkovModel
         m = modelWE(device="cpu")
         m.build_analyze_model(
@@ -370,8 +380,11 @@ def test_port_imports_no_jax_h5py_or_networkx():
             m.Tmatrix, np.squeeze(m.pSS), m.indTargets)
         msm_we_tpu_torch.optimization.get_uniform_mfpt_bins(
             var, disc, np.squeeze(m.pSS), 5)
+        with ProgressBar() as progress:
+            progress.update(progress.add_task("x"), advance=1)
+        assert msm_we_tpu_torch.cli.main(["info"]) == 0
         loaded = [n for n in ("jax", "msm_we_tpu", "h5py", "networkx", "rich",
-                              "matplotlib", "sklearn")
+                              "matplotlib", "sklearn", "mdtraj", "westpa")
                   if n in sys.modules]
         print("LOADED", loaded)
         assert not loaded, loaded
@@ -456,11 +469,18 @@ def test_compat_methods_match_jax(west_h5, arrays, method, caplog):
         assert "red" in table.columns[0]._cells[7]
         assert "boom" in table.columns[2]._cells[7]
     else:
-        m = modelWE(device="cpu")
-        for call in (m.collect_iter_coordinates,
-                     lambda: m.set_topology("ref.pdb"), lambda: m.set_basis("bstate.pdb")):
-            with pytest.raises(NotImplementedError, match="plugins and extended.py"):
-                call()
+        # Once refused as not ported; now as the JAX package's: a path that
+        # needs mdtraj raises the ImportError naming it (no mdtraj here),
+        # collecting coordinates needs a topology path
+        m, j = modelWE(device="cpu"), JaxModelWE()
+        for call, error, match in (
+                (lambda x: x.collect_iter_coordinates(), ValueError, "topology_path"),
+                (lambda x: x.set_topology("ref.pdb"), ImportError, "mdtraj"),
+                (lambda x: x.set_basis("bstate.pdb"), ImportError, "mdtraj"),
+                (lambda x: x.set_topology(3), NotImplementedError, "Unsupported topology")):
+            for model in (m, j):
+                with pytest.raises(error, match=match):
+                    call(model)
         # enable_mesh is ported: without a process group, the (1, 1) mesh
         mesh = m.enable_mesh()
         assert m._mesh is mesh and not mesh.distributed

@@ -190,7 +190,8 @@ def test_kmeans_fit_from_the_same_init_matches_jax(minibatch):
     X = _blobs(rng, n, d, 6)
     w = rng.uniform(0.2, 1.0, n).astype(np.float32)
     centers, ids, init = km.kmeans_fit(X, w, k, seed=4, n_iter=20, minibatch=minibatch,
-                                       batch_size=256, return_init=True)
+                                       batch_size=256, return_init=True,
+                                       device="cpu")
     Xj, wj, c = jnp.asarray(X), jnp.asarray(w), jnp.asarray(X[init])
     if minibatch:
         counts = jnp.zeros(k, jnp.float32)
@@ -223,7 +224,7 @@ def test_partial_fit_device_family_equals_seed_bins_batched(monkeypatch):
     X = _blobs(rng, len(bins), d, 7)
     w = rng.uniform(0.1, 1.0, len(bins)).astype(np.float32)
 
-    s = StratifiedKmeans(n_bins, k, d, seed=seed)
+    s = StratifiedKmeans(n_bins, k, d, seed=seed, device="cpu")
     j = JaxStrat(n_bins, k, d, seed=seed)
     assert s.partial_fit(X, bins, weights=w) == j.partial_fit(X, bins, weights=w) == {0, 1, 3}
     assert s.seeded_by_family == {"host": 1, "device": 2}
