@@ -22,12 +22,29 @@ Phases, each printing one JSON line:
    TB/s or FLOPs over 67 TFLOP/s f32, whichever is larger). H3's lines
    also give the FLOPs it issues beside the same-bin FLOPs.
 4. ``main``: the main path with every launch count reset first --
-   ``hot_step`` in both tiers and ``entry()`` at full size, then the haMSM
+   ``hot_step`` in both tiers and ``entry()`` at full size, each step one
+   CUDA graph replay, then the haMSM
    build (``modelWE.build_analyze_model``) on a 101 x 1,000 synthetic WE
    run generated in memory, cold with ``device="cuda"``, then warm with
    ``modelWE()`` (the default device must be the card). Every kernel must
-   have launched. Then the
-   results are checked against references: the hot step on a reduced
+   have launched. A capture only records launches, so a graph's launches
+   are counted in a ``torch.profiler`` trace of its replays (each kernel
+   of the graph must show there); the wrappers count the captures'
+   warm-ups and the builds. After that count, each tier's line times the
+   graphed step, the eager one (``entry._hot_step_eager``) and the
+   parent's route (the eager launches with the early-exit tail, a host
+   read a round) in turns, host clock around a synchronised step, and
+   gives their CUDA-event ms, the eager routes' device ms and device
+   operations (``torch.profiler``) beside the graph's lower bounds from
+   the trace, the graphed step's enqueue ms, the launches a step and the
+   flux's f32 order bound; ids must equal the eager ids bitwise, every flux
+   lie within the order bound of the first eager step's, and the graphed
+   ``pss``/JtargetSS equal the eager tail's on the same flux. Then the
+   results are checked against references: the steady-state tail alone on
+   each tier's flux in four graphs (no extra round, 16 ``torch.where``
+   rounds, 16 conditional rounds, and the conditional rounds at ``tol =
+   0`` where all 16 bodies run: times, device ops, the extra squarings of
+   the early-exit loop), the hot step on a reduced
    problem against its CPU run, and a reduced build on the GPU against the
    same build on the CPU.
 5. ``analysis``: the default build (block cross-validation, predict route)
@@ -719,6 +736,231 @@ def _build_parity(data, scan):
     return res
 
 
+# The wrappers each graph of the main path calls
+GRAPH_KERNELS = {"two_transform": ("transform_assign",),
+                 "dedup": ("transform_assign_child", "assign_flux"),
+                 "entry": ("assign_flux",)}
+
+
+def _step_profile(fn, reps):
+    """``torch.profiler`` over ``reps`` runs of ``fn``: device ms and device
+    operations (kernels, copies, sets) a run, ms None where the trace shows
+    no device event, and the launches of each of the port's kernels in the
+    trace, by kernel name (``sa.KERNEL_SYMBOLS``). The profiler can drop
+    events of a graph's replays, so for a graph each is a lower bound."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from msm_we_tpu_torch.ops import stratified_assign as sa
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    us = sum(e.time_range.elapsed_us() for e in evs)
+    kernels = {sym: sum(sym in e.name for e in evs)
+               for sym in set(sa.KERNEL_SYMBOLS.values())}
+    return (us / 1e3 / reps if us > 0 else None), len(evs) / reps, kernels
+
+
+def _graphed_run(fn, reps, graph, graph_launches):
+    """The main path's run of a graphed step: ``fn()`` once (warm-up,
+    capture and a replay at a new key), then ``reps`` replays under
+    ``torch.profiler``. The kernels of ``GRAPH_KERNELS[graph]`` must show
+    in that trace; their traced launches are added to ``graph_launches``.
+    Returns the last output and the trace's lower bounds a replay."""
+    import torch
+
+    from msm_we_tpu_torch.ops import stratified_assign as sa
+
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    dev_ms, ops, kernels = _step_profile(lambda: out.append(fn()), reps)
+    for name in GRAPH_KERNELS[graph]:
+        n = kernels[sa.KERNEL_SYMBOLS[name]]
+        require(n > 0, f"kernel {name} never launched in {reps} replays of "
+                       f"the {graph} graph (torch.profiler trace)")
+        graph_launches[name] += n
+    return out[-1], dict(
+        device_ms_lower_bound=dev_ms, device_ops_lower_bound=ops,
+        traced_launches={name: kernels[sa.KERNEL_SYMBOLS[name]] / reps
+                         for name in GRAPH_KERNELS[graph]})
+
+
+def _synced_ms(fn, reps, outs):
+    """Host milliseconds of ``reps`` synchronised runs of ``fn``; each
+    run's output is appended to ``outs``."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        outs.append(fn())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return times
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def _max_dev(outs, ref, key):
+    return max(float((o[key].double() - ref[key].double()).abs().max())
+               for o in outs)
+
+
+def _tail_rounds(fm, reps):
+    """The steady-state tail alone on ``fm``, each form captured into a
+    CUDA graph of its own: with no extra round; with ``max_extra_squarings``
+    (16) rounds guarded by ``torch.where`` (every round runs its kernels);
+    with the rounds as conditional nodes (a round after convergence
+    launches no squaring); and the conditional nodes at ``tol = 0``, below
+    the residual floor, so that all 16 bodies run (what a step whose tail
+    does not converge pays). Replay ms (CUDA events), the trace's device ms
+    and operations (lower bounds), and whether ``T``, ``p``, JtargetSS and
+    the residual equal the plain early-exit loop's at the same ``tol``
+    bitwise (required but for ``none``); the extra squarings that loop
+    took at each ``tol``."""
+    import torch
+
+    from msm_we_tpu_torch import _graph, step
+    from msm_we_tpu_torch.testing import steady_state_early_exit
+
+    S = fm.shape[0]
+    ids = torch.arange(S, device=fm.device)
+    basis, target = ids == S - 2, ids == S - 1
+    ref = {tol: steady_state_early_exit(fm, basis, target, tol=tol)
+           for tol in (1e-6, 0.0)}
+    res = dict(extra_squarings=ref[1e-6][4], extra_squarings_tol_0=ref[0.0][4])
+    require(ref[0.0][4] == 16, f"the early-exit loop took {ref[0.0][4]} "
+                               f"extra squarings at tol = 0, not 16")
+
+    def none():
+        return step.steady_state_from_flux(fm, basis, target,
+                                           max_extra_squarings=0)
+
+    def where():
+        return step.steady_state_from_flux(fm, basis, target)
+
+    def cond():
+        return _graph.steady_state_conditional(fm, basis, target)
+
+    def where_0():
+        return step.steady_state_from_flux(fm, basis, target, tol=0.0)
+
+    def cond_0():
+        return _graph.steady_state_conditional(fm, basis, target, tol=0.0)
+
+    forms = {"none": (none, none, 1e-6), "where": (where, where, 1e-6),
+             "conditional": (where, cond, 1e-6),
+             "conditional_taken": (where_0, cond_0, 0.0)}
+    for form, (eager, graphed, tol) in forms.items():
+        cap = _graph.capture(eager, graphed, (), fm.device)
+        got = cap.replay()
+        dev_ms, ops, _k = _step_profile(cap.replay, reps)
+        bitwise = all(torch.equal(g, r) for g, r in zip(got, ref[tol][:4]))
+        res[form] = dict(ms=cuda_ms(cap.replay, reps), device_ms_lower_bound=dev_ms,
+                         device_ops_lower_bound=ops, bitwise=bitwise,
+                         p_diff=float((got[1] - ref[tol][1]).abs().max()))
+        require(bitwise or form == "none",
+                f"tail [{form}] differs from the early-exit loop (p by "
+                f"{res[form]['p_diff']})")
+    return res
+
+
+def _early_exit_tail(fm, basis_mask, target_mask):
+    """The parent's tail: the early-exit loop, a host read a round."""
+    from msm_we_tpu_torch.testing import steady_state_early_exit
+
+    return steady_state_early_exit(fm, basis_mask, target_mask)[:4]
+
+
+def _hot_step_turns(s, tier, reps):
+    """The hot step on the staged problem ``s`` by three routes, timed in
+    turns (parent, eager, graph, graph, eager, parent; ``reps``
+    synchronised steps each): graphed (``hot_step``, a CUDA graph replay),
+    eager (``_hot_step_eager``: launches from Python, the tail's rounds
+    guarded by ``torch.where``) and the parent's route (the eager launches
+    with the early-exit tail, which reads the residual on the host before
+    each extra squaring). Every step's ids must equal the first eager
+    step's bitwise. The f32 flux adds with ``atomicAdd`` in a run-dependent
+    order, so every step's ``fm`` must lie within
+    ``testing.flux_order_bound`` of the first eager step's in each cell,
+    and each graphed step's ``pss``, JtargetSS and residual must equal,
+    bitwise, the eager tail run on that step's own ``fm``. The largest
+    distance of any step of a route from the first eager step (the spread)
+    is reported beside. Runs after the main path's counted run."""
+    import torch
+
+    from msm_we_tpu_torch.entry import (
+        _hot_step,
+        _hot_step_eager,
+        _state_masks,
+        hot_step,
+    )
+    from msm_we_tpu_torch.ops import stratified_assign as sa
+    from msm_we_tpu_torch.step import steady_state_from_flux
+    from msm_we_tpu_torch.testing import flux_order_bound
+
+    routes = dict(graph=lambda: hot_step(s, tier),
+                  eager=lambda: _hot_step_eager(s, tier),
+                  parent=lambda: _hot_step(s, tier, _early_exit_tail))
+    for fn in routes.values():
+        fn()
+    torch.cuda.synchronize()
+    before = sa.launch_counts()
+    routes["eager"]()
+    per_step = {k: n - before[k] for k, n in sa.launch_counts().items()}
+    outs = {r: [] for r in routes}
+    times = {r: [] for r in routes}
+    for r in ("parent", "eager", "graph", "graph", "eager", "parent"):
+        times[r] += _synced_ms(routes[r], reps, outs[r])
+    ref = outs["eager"][0]
+    S = s["n_states"]
+    bound = flux_order_bound(ref["pidx"], ref["cidx"], s["w"], S)
+    for o in sum(outs.values(), []):
+        require(torch.equal(o["pidx"], ref["pidx"])
+                and torch.equal(o["cidx"], ref["cidx"]),
+                f"hot step [{tier}]: ids differ between steps")
+        excess = float(((o["fm"].double() - ref["fm"].double()).abs()
+                        - bound).max())
+        require(excess <= 0.0, f"hot step [{tier}]: fm differs from the "
+                               f"first eager step beyond the f32 order bound")
+    basis, target = _state_masks(S, ref["fm"].device)
+    for o in outs["graph"]:
+        _T, pss, flux, res = steady_state_from_flux(o["fm"], basis, target)
+        require(torch.equal(o["pss"], pss) and torch.equal(o["flux"], flux)
+                and torch.equal(o["residual"], res),
+                f"hot step [{tier}]: the graphed tail differs from the eager "
+                f"tail on the same fm")
+    line = dict(step_ms=_median(times["graph"]),
+                eager_step_ms=_median(times["eager"]),
+                parent_step_ms=_median(times["parent"]),
+                event_ms=cuda_ms(routes["graph"], reps),
+                eager_event_ms=cuda_ms(routes["eager"], reps),
+                parent_event_ms=cuda_ms(routes["parent"], reps))
+    for r in ("eager", "parent"):
+        dev_ms, ops, _k = _step_profile(routes[r], reps)
+        line[f"{r}_device_ms"], line[f"{r}_device_ops"] = dev_ms, ops
+    t_enqueue = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        routes["graph"]()
+        t_enqueue.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+    line.update(
+        enqueue_ms=_median(t_enqueue), eager_kernel_launches=per_step,
+        spread={key: {r: _max_dev(o, ref, key) for r, o in outs.items()}
+                for key in ("fm", "pss", "flux")},
+        fm_order_bound_max=float(bound.max()))
+    return line
+
+
 def phase_main(args, summary):
     import numpy as np
     import torch
@@ -738,37 +980,29 @@ def phase_main(args, summary):
     gen_s = time.perf_counter() - t0
     torch.cuda.synchronize()
 
-    # ---- the main path, counted
+    # ---- the main path, counted: the hot step of each tier and entry() as
+    # graph replays (their launches traced), then the builds. The wrappers
+    # count the launches of the captures' warm-ups and of the builds.
     sa.reset_launch_counts()
+    graph_launches = dict.fromkeys(sa.KERNELS, 0)
+    traced = {}
     for tier in TIERS:
-        out = hot_step(staged[tier], tier)
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(args.reps):
-            t = time.perf_counter()
-            out = hot_step(staged[tier], tier)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t)
-        times.sort()
-        step_s = times[len(times) // 2]
+        s = staged[tier]
+        out, traced[tier] = _graphed_run(lambda: hot_step(s, tier), args.reps,
+                                         tier, graph_launches)
         fm = out["fm"]
         pss_sum = float(out["pss"].sum())
         require(bool(torch.isfinite(fm).all()) and fm.shape == (252, 252),
                 f"hot step [{tier}] flux malformed")
         require(abs(pss_sum - 1.0) < 1e-3, f"hot step [{tier}] pSS sums to {pss_sum}")
-        emit(dict(phase="hot_step", tier=tier, n_segments=N,
-                  step_ms=step_s * 1e3, frames_per_s=N / step_s,
-                  ss_residual=float(out["residual"]),
-                  JtargetSS=float(out["flux"]), reps=args.reps))
-        summary["hot_step_" + tier] = dict(step_ms=step_s * 1e3,
-                                           frames_per_s=N / step_s)
-    del staged
+        traced[tier].update(ss_residual=float(out["residual"]),
+                            JtargetSS=float(out["flux"]))
     fn, eargs = entry()  # the default device: the card
-    fm, pss, flux, residual = fn(*eargs)
-    torch.cuda.synchronize()
+    (fm, pss, flux, residual), entry_trace = _graphed_run(
+        lambda: fn(*eargs), 2, "entry", graph_launches)
     require(bool(torch.isfinite(pss).all()), "entry() pSS not finite")
     emit(dict(phase="entry", flux_sum=float(fm.sum()), JtargetSS=float(flux),
-              ss_residual=float(residual)))
+              ss_residual=float(residual), **entry_trace))
 
     builds = []
     # cold (first use of every path), then warm with no device given
@@ -777,8 +1011,10 @@ def phase_main(args, summary):
         builds.append(secs)
     require(model.device.type == "cuda",
             f"modelWE() with no device built on {model.device}")
-    counts = sa.launch_counts()
-    emit(dict(phase="launch_counts", **counts))
+    eager_launches = sa.launch_counts()
+    counts = {k: n + graph_launches[k] for k, n in eager_launches.items()}
+    emit(dict(phase="launch_counts", eager=eager_launches,
+              graph_traced=graph_launches, **counts))
     require(np.isfinite(model.JtargetSS) and model.JtargetSS > 0,
             f"build JtargetSS = {model.JtargetSS}")
     emit(dict(phase="build", segments=int(sum(len(d) for d in model.dtrajs)),
@@ -791,10 +1027,24 @@ def phase_main(args, summary):
     for name in sa.KERNELS:
         require(counts[name] > 0, f"kernel {name} never launched on the main path")
     summary["launches"] = counts
+    summary["launches_graph"] = graph_launches
     summary["build_warm_s"] = builds[1]
     summary["bench_data"] = data  # reused by the access phase
 
-    # ---- references (not counted)
+    # ---- comparisons and references (not counted)
+    for tier in TIERS:
+        line = _hot_step_turns(staged[tier], tier, args.reps)
+        emit(dict(phase="hot_step", tier=tier, n_segments=N,
+                  frames_per_s=N / line["step_ms"] * 1e3, reps=args.reps,
+                  **traced[tier], **line))
+        summary["hot_step_" + tier] = dict(
+            step_ms=line["step_ms"], eager_step_ms=line["eager_step_ms"],
+            parent_step_ms=line["parent_step_ms"],
+            event_ms=line["event_ms"], frames_per_s=N / line["step_ms"] * 1e3)
+        fm = hot_step(staged[tier], tier)["fm"]
+        emit(dict(phase="steady_state_rounds", tier=tier,
+                  **_tail_rounds(fm, args.reps)))
+    del staged
     emit(dict(phase="hot_step_reference", **_hot_step_ref_check()))
     small = generate_we_arrays(n_iterations=30, n_segments=200, seed=17)
     for scan in (False, True):
@@ -3192,6 +3442,7 @@ def main(argv=None):
         kernels.append(dict(
             name=name, route="cuda", source=info["source"],
             replaces=info["replaces"], launches=main_launches.get(name),
+            launches_graph=summary.get("launches_graph", {}).get(name),
             launches_analysis=launches_analysis.get(name),
             launches_configs=launches_configs.get(name),
             launches_access=launches_access.get(name),

@@ -16,6 +16,7 @@ hand-written kernels or raise.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -41,3 +42,16 @@ def to_device(a, device, dtype=None):
     if dtype is not None:
         t = t.to(dtype)
     return t.to(device).contiguous()
+
+
+def f64_threshold(value, dtype):
+    """The largest ``dtype`` number not above the float ``value``. A
+    ``dtype`` tensor ``x`` compared with it on the device (``x > t``, ``x <=
+    t``) decides as ``float(x)`` compared with ``value`` on the host would,
+    without the host read."""
+    kind = np.dtype(str(dtype).removeprefix("torch.")).type
+    with np.errstate(over="ignore"):  # beyond the dtype's range: its max
+        t = kind(value)
+        if float(t) > value:
+            t = np.nextafter(t, kind(-np.inf))
+    return float(t)

@@ -12,13 +12,18 @@ scatter -> steady state.
 ``n_ranks`` ranks (``parallel/``) against the one-rank result.
 
 All run on the card unless the caller asks for the CPU
-(``device="cpu"``); without a CUDA device the default raises.
+(``device="cpu"``); without a CUDA device the default raises. On the card
+a step is one CUDA graph replay (``_graph.py``, the counterpart of the JAX
+package's ``jax.jit``): ``hot_step`` and ``entry()``'s ``hamsm_forward``
+are captured at their first call with new inputs and replayed after that.
+On the CPU they run eagerly.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from . import _graph
 from ._device import as_device, to_device
 from .ops.stratified_assign import (
     assign_flux,
@@ -51,22 +56,31 @@ def entry(device="cuda"):
     """``(hamsm_forward, example_args)`` on ``device``: the
     ``tiny_stratified_problem`` through assign + overrides + flux (one H3
     launch on CUDA) and ``steady_state_from_flux``. ``hamsm_forward``
-    returns ``(fm, pss, flux, residual)``."""
+    returns ``(fm, pss, flux, residual)``; on CUDA tensors it replays one
+    CUDA graph, keyed by its arguments."""
     dev = as_device(device)
     p = tiny_stratified_problem(n_rows=64, d=8, n_bins=4, k=4, seed=0)
     n_states = p["n_states"]
 
+    def forward(tail):
+        def step(fp, fc, pbins, cbins, basis_p, basis_c, target_c, w,
+                 centers, center_bin, valid):
+            fm, _pidx, _cidx = _discretize_and_flux(
+                fp, fc, pbins, cbins, basis_p, basis_c, target_c, w,
+                centers, center_bin, valid, n_states,
+            )
+            basis_mask, target_mask = _state_masks(n_states, fm.device)
+            _T, pss, flux, residual = tail(fm, basis_mask, target_mask)
+            return fm, pss, flux, residual
+        return step
+
+    eager = forward(steady_state_from_flux)
+    graphed = forward(_graph.steady_state_conditional)
+
     def hamsm_forward(fp, fc, pbins, cbins, basis_p, basis_c, target_c, w,
                       centers, center_bin, valid):
-        fm, _pidx, _cidx = _discretize_and_flux(
-            fp, fc, pbins, cbins, basis_p, basis_c, target_c, w,
-            centers, center_bin, valid, n_states,
-        )
-        basis_mask, target_mask = _state_masks(n_states, fm.device)
-        _T, pss, flux, residual = steady_state_from_flux(
-            fm, basis_mask, target_mask
-        )
-        return fm, pss, flux, residual
+        return _graph.run(eager, graphed, fp, fc, pbins, cbins, basis_p,
+                          basis_c, target_c, w, centers, center_bin, valid)
 
     args = tuple(to_device(p[k], dev, _DTYPES[k]) for k in _ROW_KEYS)
     return hamsm_forward, args
@@ -124,12 +138,35 @@ def hot_step(problem, tier="two_transform", device="cuda"):
     f32 flux). ``dedup``: one features-only H1 launch transforms the
     extended raw array once and emits its features (no scoring); parent
     features are a gather of them (WE continuity) and one H3 launch
-    assigns both sets and scatters the flux. Any feature width. Either way the steady state follows.
+    assigns both sets and scatters the flux. Any feature width. Either way
+    the steady state follows.
 
+    On the card the step is one CUDA graph replay: the staged problem is
+    the graph's static input, captured at the first step on it (a
+    ``make_problem()`` dict is staged anew, so each such call captures).
     Returns a dict with ``fm``, ``pss``, ``flux``, ``residual``, ``pidx``
     and ``cidx`` (device tensors; nothing is synchronised).
     """
     s = problem if "tier" in problem else stage_problem(problem, tier, device)
+    return _graph.run(_hot_step_eager, _hot_step_graphed, s, tier)
+
+
+def _hot_step_eager(s, tier):
+    """:func:`hot_step` on a staged problem as launches from Python, with
+    no graph: the CPU route, the warm-up of a capture, and on the card the
+    comparison for its replays."""
+    return _hot_step(s, tier, steady_state_from_flux)
+
+
+def _hot_step_graphed(s, tier):
+    """:func:`hot_step` as a CUDA graph captures it: the tail's extra
+    squarings are conditional nodes."""
+    return _hot_step(s, tier, _graph.steady_state_conditional)
+
+
+def _hot_step(s, tier, tail):
+    """The hot step on a staged problem with ``tail(fm, basis_mask,
+    target_mask) -> (T, p, flux, residual)`` as its steady state."""
     if s["tier"] != tier:
         raise ValueError(f"problem was staged for tier {s['tier']!r}, not {tier!r}")
     S = s["n_states"]
@@ -154,7 +191,7 @@ def hot_step(problem, tier="two_transform", device="cuda"):
             s["basis_c"], s["target_c"], *bank, S,
         )
     basis_mask, target_mask = _state_masks(S, fm.device)
-    _T, pss, flux, residual = steady_state_from_flux(fm, basis_mask, target_mask)
+    _T, pss, flux, residual = tail(fm, basis_mask, target_mask)
     return dict(fm=fm, pss=pss, flux=flux, residual=residual, pidx=pidx,
                 cidx=cidx)
 

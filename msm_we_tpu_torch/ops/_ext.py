@@ -37,6 +37,7 @@ _SIGNATURES = {
     "msm_pair_plan_keys": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P],
     "msm_pair_plan_tiles": [_P, _I, _P, _I, _P, _P, _P, _I, _P],
     "msm_pair_assign": [_P] * 8 + [_I] + [_P] * 3 + [_I] * 4 + [_P] * 5,
+    "msm_graph_add_if": [_P, _P, _P],
 }
 
 _lock = threading.Lock()

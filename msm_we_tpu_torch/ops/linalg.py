@@ -16,6 +16,7 @@ import numpy as np
 import scipy.sparse as sparse
 import torch
 
+from .._device import f64_threshold
 from .._logging import log
 from ..utils import find_connected_sets, inverse_iteration, is_connected
 
@@ -505,6 +506,9 @@ def steady_state_power(T, guess, n_iters=200):
     return p
 
 
+COMMITTOR_BLOCK = 64  # guarded iterations between two host reads
+
+
 def committor_device(M, target_mask, basis_mask, conv=1e-5, max_iters=10000):
     """Forward committor iteration on ``M``'s device (``committor_jax``).
 
@@ -512,18 +516,25 @@ def committor_device(M, target_mask, basis_mask, conv=1e-5, max_iters=10000):
     ``q[basis] == 0`` on return. Each step clamps ``q`` (1 on the target, 0
     on the basis) and multiplies by ``M``; the result is the first iterate
     whose L1 change from the previous one is ``<= conv``, or the
-    ``max_iters``-th. The convergence test reads the residual back after
-    every step: one host sync per iteration.
+    ``max_iters``-th. The convergence test stays on the device: a 0-dim
+    ``done`` flag freezes ``q`` after the converging step, and the host
+    reads the flag once every ``COMMITTOR_BLOCK`` steps.
     """
     eye = torch.eye(M.shape[0], dtype=M.dtype, device=M.device)
     M = torch.where(basis_mask[:, None], eye, M)
     one = torch.ones((), dtype=M.dtype, device=M.device)
     zero = torch.zeros((), dtype=M.dtype, device=M.device)
     q = torch.where(target_mask, one, zero)
-    for _ in range(int(max_iters)):
-        qn = M @ torch.where(target_mask, one, torch.where(basis_mask, zero, q))
-        converged = float((q - qn).abs().sum()) <= conv
-        q = qn
-        if converged:
+    done = torch.zeros((), dtype=torch.bool, device=M.device)
+    conv = f64_threshold(conv, M.dtype)
+    left = int(max_iters)
+    while left > 0:
+        for _ in range(min(COMMITTOR_BLOCK, left)):
+            qn = M @ torch.where(target_mask, one, torch.where(basis_mask, zero, q))
+            change = (q - qn).abs().sum()
+            q = torch.where(done, q, qn)
+            done = done | (change <= conv)
+        left -= COMMITTOR_BLOCK
+        if bool(done):
             break
     return q

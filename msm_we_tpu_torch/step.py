@@ -20,6 +20,7 @@ import math
 
 import torch
 
+from ._device import f64_threshold
 from .ops.stratified_assign import assign_flux, pair_assign
 
 __all__ = [
@@ -163,17 +164,10 @@ def cluster_stats(cid, p1, n_live, k_max):
     return counts, sums, vmin, vmax
 
 
-def steady_state_from_flux(fm, basis_mask, target_mask, n_iters=512,
-                           tol=1e-6, max_extra_squarings=16):
-    """Device tail in the dtype of ``fm``: row-normalize with sink
-    recycling, then ``p0 T^n`` by repeated squaring.
-
-    ``ceil(log2(n_iters))`` squarings, then more (at most
-    ``max_extra_squarings``) while the residual ``||p T - p||_1`` exceeds
-    ``tol``; each extra check reads the residual on the host. The row
-    divisor is exact (no clamp), so rows with outflux below 1e-30 stay
-    stochastic. Returns ``(T, p, flux, residual)``.
-    """
+def _transition_matrix(fm, basis_mask, target_mask):
+    """Row-normalized ``fm`` with sink recycling: rows without outflux stay
+    put, target rows recycle uniformly into the basis. The row divisor is
+    exact (no clamp), so rows with outflux below 1e-30 stay stochastic."""
     S = fm.shape[0]
     dev, dt = fm.device, fm.dtype
     out = fm.sum(1)
@@ -184,33 +178,82 @@ def steady_state_from_flux(fm, basis_mask, target_mask, n_iters=512,
     )
     eye = torch.eye(S, dtype=torch.bool, device=dev)
     T = torch.where((~pos)[:, None] & eye, torch.ones_like(T), T)
-    # Target rows recycle uniformly into the basis
     n_basis = basis_mask.sum().clamp(min=1).to(dt)
     recycle = torch.where(
         basis_mask, 1.0 / n_basis, torch.zeros((), dtype=dt, device=dev)
     )
-    T = torch.where(target_mask[:, None], recycle[None, :], T)
-    p0 = torch.ones(S, dtype=dt, device=dev) / S
+    return torch.where(target_mask[:, None], recycle[None, :], T)
 
-    def stationary(Tn):
-        p = p0 @ Tn
-        p = p / p.sum().clamp(min=1e-30)
-        return p, (p @ T - p).abs().sum()
 
-    def square(Tn):
-        Tn = Tn @ Tn
-        # Renormalize rows: f32 powering drifts row sums off 1
-        return Tn / Tn.sum(1, keepdim=True).clamp(min=1e-30)
+def _square(Tn):
+    Tn = Tn @ Tn
+    # Renormalize rows: f32 powering drifts row sums off 1
+    return Tn / Tn.sum(1, keepdim=True).clamp(min=1e-30)
 
-    Tn = T
-    for _ in range(max(int(math.ceil(math.log2(max(n_iters, 2)))), 1)):
-        Tn = square(Tn)
-    p, residual = stationary(Tn)
-    for _ in range(max_extra_squarings):
-        if not float(residual) > tol:
-            break
-        Tn = square(Tn)
-        p, residual = stationary(Tn)
-    flux = (torch.where(target_mask[None, :], T, torch.zeros_like(T))
+
+def _stationary(Tn, T):
+    """``p = p0 T^n`` from the uniform ``p0``, normalized, and its residual
+    ``||p T - p||_1``."""
+    S = T.shape[0]
+    p0 = torch.ones(S, dtype=T.dtype, device=T.device) / S
+    p = p0 @ Tn
+    p = p / p.sum().clamp(min=1e-30)
+    return p, (p @ T - p).abs().sum()
+
+
+def _fixed_squarings(n_iters):
+    return max(int(math.ceil(math.log2(max(n_iters, 2)))), 1)
+
+
+def _target_flux(T, p, target_mask):
+    return (torch.where(target_mask[None, :], T, torch.zeros_like(T))
             * p[:, None]).sum()
-    return T, p, flux, residual
+
+
+def _where_rounds(Tn, p, residual, T, tol, n_rounds):
+    """Guarded rounds: each computes its candidate and keeps it only where
+    the 0-dim flag ``residual > tol`` holds, so a round after convergence
+    changes nothing (the early-exit loop's result, no host read)."""
+    for _ in range(n_rounds):
+        go = residual > tol
+        Tc = _square(Tn)
+        pc, rc = _stationary(Tc, T)
+        Tn = torch.where(go, Tc, Tn)
+        p = torch.where(go, pc, p)
+        residual = torch.where(go, rc, residual)
+    return Tn, p, residual
+
+
+def _steady_state(fm, basis_mask, target_mask, n_iters, tol,
+                  max_extra_squarings, rounds):
+    """The tail with its extra squarings taken by ``rounds`` (the signature
+    of :func:`_where_rounds`; ``_graph.conditional_rounds`` inside a
+    capture). ``tol`` becomes the largest number of ``fm``'s dtype not
+    above it, so the device comparison decides as a host read would."""
+    tol = f64_threshold(tol, fm.dtype)
+    T = _transition_matrix(fm, basis_mask, target_mask)
+    Tn = T
+    for _ in range(_fixed_squarings(n_iters)):
+        Tn = _square(Tn)
+    p, residual = _stationary(Tn, T)
+    Tn, p, residual = rounds(Tn, p, residual, T, tol, max_extra_squarings)
+    return T, p, _target_flux(T, p, target_mask), residual
+
+
+def steady_state_from_flux(fm, basis_mask, target_mask, n_iters=512,
+                           tol=1e-6, max_extra_squarings=16):
+    """Device tail in the dtype of ``fm``: row-normalize with sink
+    recycling, then ``p0 T^n`` by repeated squaring.
+
+    ``ceil(log2(n_iters))`` squarings, then at most ``max_extra_squarings``
+    rounds, each taken only while the residual ``||p T - p||_1`` exceeds
+    ``tol`` (the JAX package's ``while_loop``). The check stays on the
+    device, with no host read: every round computes its candidate and
+    keeps it only while the 0-dim flag ``residual > tol`` holds, so the
+    result is the early-exit loop's (the first round whose residual is
+    ``<= tol``, else the last). A CUDA graph of a step takes the rounds as
+    conditional nodes instead (``_graph.steady_state_conditional``).
+    Returns ``(T, p, flux, residual)``.
+    """
+    return _steady_state(fm, basis_mask, target_mask, n_iters, tol,
+                         max_extra_squarings, _where_rounds)

@@ -4,7 +4,10 @@ and the near-tie check that decides when two assignments may differ.
 Counterpart of ``msm_we_tpu/testing.py`` (``tiny_stratified_problem``,
 ``pad_stratified_problem``) plus ``make_problem`` of ``bench.py`` (the hot
 step's NTL9-scale shapes). numpy only: the same seed gives the same arrays
-as the JAX package's generators.
+as the JAX package's generators. ``steady_state_early_exit`` is the plain
+early-exit form of the hot step's steady-state tail and
+``flux_order_bound`` the tolerance between two f32 fluxes summed in
+different orders (torch).
 """
 from __future__ import annotations
 
@@ -15,6 +18,8 @@ __all__ = [
     "pad_stratified_problem",
     "make_problem",
     "near_tie_rows",
+    "steady_state_early_exit",
+    "flux_order_bound",
 ]
 
 
@@ -182,3 +187,48 @@ def near_tie_rows(rows, ids_a, ids_b, X, bins, centers, center_bin, valid,
             s[ib] - smin <= mag[ib] + mag.max()
         )
     return out
+
+
+def steady_state_early_exit(fm, basis_mask, target_mask, n_iters=512, tol=1e-6,
+                            max_extra_squarings=16):
+    """``step.steady_state_from_flux`` as a loop that reads the residual on
+    the host before each extra squaring and stops at the first one within
+    ``tol``: the plain reference of its device-side check. Returns ``(T, p,
+    flux, residual, n_extra)``, ``n_extra`` the extra squarings taken."""
+    from .step import (
+        _fixed_squarings,
+        _square,
+        _stationary,
+        _target_flux,
+        _transition_matrix,
+    )
+
+    T = _transition_matrix(fm, basis_mask, target_mask)
+    Tn = T
+    for _ in range(_fixed_squarings(n_iters)):
+        Tn = _square(Tn)
+    p, residual = _stationary(Tn, T)
+    n_extra = 0
+    while n_extra < max_extra_squarings and float(residual) > tol:
+        Tn = _square(Tn)
+        p, residual = _stationary(Tn, T)
+        n_extra += 1
+    return T, p, _target_flux(T, p, target_mask), residual, n_extra
+
+
+def flux_order_bound(pidx, cidx, w, n_states):
+    """(S, S) f64 bound on how far two f32 flux matrices of the same ids
+    and weights, summed in different orders (``atomicAdd``), may lie apart
+    in each cell: ``n eps32 sum |w|`` over the cell's ``n`` rows. Each of
+    the ``n - 1`` additions of an f32 sum rounds by at most ``eps32 / 2``
+    of a partial sum no larger than ``sum |w|``, so either order lies within
+    half the bound of the exact sum."""
+    import torch
+
+    flat = pidx.long() * n_states + cidx.long()
+    size = n_states * n_states
+    n = torch.zeros(size, dtype=torch.float64, device=w.device).index_add_(
+        0, flat, torch.ones_like(w, dtype=torch.float64))
+    mag = torch.zeros(size, dtype=torch.float64, device=w.device).index_add_(
+        0, flat, w.double().abs())
+    return (n * _EPS32 * mag).reshape(n_states, n_states)
