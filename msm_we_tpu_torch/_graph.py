@@ -26,6 +26,23 @@ steady-state tail's extra squarings as conditional nodes
   replay's launches show only in a trace of it (``torch.profiler``).
 * A capture that fails raises; nothing falls back to eager launches.
 
+Tracing (``tracing.py``). While a ``tracing.collect()`` block is open or a
+``torch.profiler`` records, a run opens three spans: ``graph.lookup``
+(from :func:`run`'s entry: the device check, flattening, key, finding or
+capturing the entry, and under ``collect()`` the collector's read of the
+last traced replay), ``graph.launch`` (``graph.replay()`` in its device
+context) and ``graph.copy_out`` (the output clones and the unflatten).
+Under ``collect()`` the step replays its traced graph, a capture of its
+own (``graph_key(..., traced=True)``): the same kernels, with timing
+events recorded as event nodes at the graph's start, where the
+steady-state tail begins and at its end, and a device ``int32`` counter
+that each conditional round of the tail adds one to. The block's
+collector reads each replay's two intervals, ``device_ms["assign_flux"]``
+and ``device_ms["tail"]``, before the next traced replay overwrites them,
+and the counter, ``counts["tail_rounds"]``, once when the block closes.
+With neither on, a run opens no span: it reads one count and the
+profiler's flag in :func:`run` and again in ``GraphCache.run``.
+
 Why two forms of the tail: a conditional node exists only in a graph, and
 the eager and CPU routes may not read the device, so they keep every round
 and let a ``torch.where`` on the flag discard it
@@ -45,7 +62,7 @@ from contextlib import contextmanager
 import torch
 from torch.utils import _pytree as pytree
 
-from . import step
+from . import step, tracing
 from .ops._ext import check, library
 
 __all__ = ["CACHE_SIZE", "GraphCache", "conditional", "conditional_rounds",
@@ -55,9 +72,10 @@ CACHE_SIZE = 4
 _local = threading.local()  # .capture: the _Capture under way in this thread
 
 
-def graph_key(fn, leaves):
-    """The cache key of ``fn`` over the flattened arguments ``leaves``."""
-    key = [fn]
+def graph_key(fn, leaves, traced=False):
+    """The cache key of ``fn`` over the flattened arguments ``leaves``
+    (``traced``: the traced graph's, never the plain graph's)."""
+    key = [fn, traced]
     for x in leaves:
         if isinstance(x, torch.Tensor):
             key.append((x.data_ptr(), tuple(x.shape), x.stride(), x.dtype,
@@ -70,30 +88,57 @@ def graph_key(fn, leaves):
 
 class _Captured:
     """A captured graph and its static outputs (``bodies``: the graphs of
-    its conditional nodes, kept with it)."""
+    its conditional nodes, kept with it). A traced graph also holds its
+    three timing events (``marks``: start, tail, end) and its round
+    counter (``rounds``), and is a traced source of ``tracing.Collector``."""
 
-    def __init__(self, graph, device, outputs, spec, bodies):
+    def __init__(self, graph, device, outputs, spec, bodies, marks=None,
+                 rounds=None):
         self.graph = graph
         self.device = device
         self.outputs = outputs
         self.spec = spec
         self.bodies = bodies
+        self.marks = marks
+        self.rounds = rounds
 
-    def replay(self):
+    def launch(self):
         with torch.cuda.device(self.device):
             self.graph.replay()
-            outs = [x.clone() if isinstance(x, torch.Tensor) else x
-                    for x in self.outputs]
+
+    def copy_out(self):
+        outs = [x.clone() if isinstance(x, torch.Tensor) else x
+                for x in self.outputs]
         return pytree.tree_unflatten(outs, self.spec)
+
+    def replay(self):
+        self.launch()
+        return self.copy_out()
+
+    def open(self, col):
+        with torch.cuda.device(self.device):
+            self.rounds.zero_()
+
+    def read(self, col):
+        start, tail, end = self.marks
+        end.synchronize()
+        col.device_ms.setdefault("assign_flux", []).append(start.elapsed_time(tail))
+        col.device_ms.setdefault("tail", []).append(tail.elapsed_time(end))
+
+    def close(self, col):
+        col.counts["tail_rounds"] = col.counts.get("tail_rounds", 0) + int(self.rounds)
 
 
 class _Capture:
-    """What :func:`conditional` needs of the capture under way."""
+    """What :func:`conditional` and the tail need of the capture under way
+    (``marks`` and ``rounds``: a traced capture's events and counter)."""
 
-    def __init__(self, stream):
+    def __init__(self, stream, marks=None, rounds=None):
         self.stream = stream
         self.body_stream = torch.cuda.Stream()
         self.bodies = []
+        self.marks = marks
+        self.rounds = rounds
 
 
 def _check_precision():
@@ -135,9 +180,13 @@ def conditional_rounds(Tn, p, residual, T, tol, n_rounds):
     node on ``residual > tol`` (so a round after convergence launches no
     more than the flag's kernels) and writes its result into the tail's own
     ``Tn``, ``p`` and ``residual``, whose addresses the rest of the graph
-    reads."""
+    reads. A traced capture's rounds also add one to its counter."""
+    cap = getattr(_local, "capture", None)
+    counter = cap.rounds if cap is not None else None
     for _ in range(n_rounds):
         with conditional(residual > tol):
+            if counter is not None:
+                counter.add_(1)
             Tc = step._square(Tn)
             pc, rc = step._stationary(Tc, T)
             Tn.copy_(Tc)
@@ -150,15 +199,21 @@ def steady_state_conditional(fm, basis_mask, target_mask, n_iters=512,
                              tol=1e-6, max_extra_squarings=16):
     """``step.steady_state_from_flux`` for a capture by :func:`capture`,
     its extra squarings as conditional nodes (:func:`conditional_rounds`):
-    the same result, and a round after convergence costs no squaring."""
+    the same result, and a round after convergence costs no squaring. A
+    traced capture records its tail event here."""
+    cap = getattr(_local, "capture", None)
+    if cap is not None and cap.marks is not None:
+        cap.marks[1].record(cap.stream)
     return step._steady_state(fm, basis_mask, target_mask, n_iters, tol,
                               max_extra_squarings, conditional_rounds)
 
 
-def capture(eager, graphed, args, device):
+def capture(eager, graphed, args, device, traced=False):
     """Warm ``eager(*args)`` up on a side stream of ``device``, then capture
     ``graphed(*args)`` into a CUDA graph on that stream. Returns the
-    captured step."""
+    captured step; ``traced`` adds the timing events and the round counter
+    (the module's docstring: ``graphed`` must end in
+    :func:`steady_state_conditional`, which marks where its tail starts)."""
     _check_precision()
     with torch.cuda.device(device):
         stream = torch.cuda.Stream()
@@ -167,20 +222,32 @@ def capture(eager, graphed, args, device):
             eager(*args)
         torch.cuda.current_stream().wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
-        cap = _local.capture = _Capture(stream)
+        marks = rounds = None
+        if traced:
+            marks = [torch.cuda.Event(enable_timing=True, external=True)
+                     for _ in range(3)]
+            rounds = torch.zeros((), dtype=torch.int32, device=device)
+        cap = _local.capture = _Capture(stream, marks, rounds)
         try:
             with torch.cuda.graph(graph, stream=stream):
+                if traced:
+                    marks[0].record(stream)
                 out = graphed(*args)
+                if traced:
+                    marks[2].record(stream)
         finally:
             _local.capture = None
     outputs, spec = pytree.tree_flatten(out)
-    return _Captured(graph, device, outputs, spec, cap.bodies)
+    return _Captured(graph, device, outputs, spec, cap.bodies, marks, rounds)
 
 
 class GraphCache:
     """Captured steps by :func:`graph_key`, at most ``CACHE_SIZE`` of them.
-    ``capture(eager, graphed, args, device)`` makes an entry with a ``replay()``
-    method (:func:`capture`; a test may pass another)."""
+    ``capture(eager, graphed, args, device, traced)`` makes an entry with a
+    ``replay()`` method, and with ``traced=True`` a traced entry, a source
+    of ``tracing.Collector``; with tracing on, an entry's ``launch()`` and
+    ``copy_out()`` run in turn instead (:func:`capture`; a test may pass
+    another)."""
 
     def __init__(self, capture=capture):
         self._capture = capture
@@ -195,20 +262,47 @@ class GraphCache:
 
     def run(self, eager, graphed, *args):
         """Replay the entry of ``graphed`` over ``args``, capturing it first
-        where there is none (on the device of the first tensor)."""
+        where there is none (on the device of the first tensor); with
+        tracing on, under the module's spans."""
+        if tracing.active():
+            return self.run_spanned(eager, graphed, args)
+        return self._lookup(eager, graphed, args, False).replay()
+
+    def run_spanned(self, eager, graphed, args, check_device=False):
+        """:meth:`run` under the spans ``graph.lookup`` (from this call to
+        the entry; under ``collect()`` the entry is the traced graph, and
+        the collector reads what the last traced replay left first),
+        ``graph.launch`` and ``graph.copy_out``. With ``check_device``,
+        ``eager(*args)`` runs instead where no tensor among ``args`` lies on
+        a CUDA device (:func:`run`'s check, inside the lookup's span)."""
+        col = tracing.collector()
+        with tracing.span("graph.lookup"):
+            entry = None
+            if not check_device or _on_cuda(args):
+                entry = self._lookup(eager, graphed, args, col is not None)
+                if col is not None:
+                    col.using(entry)
+        if entry is None:
+            return eager(*args)
+        with tracing.span("graph.launch"):
+            entry.launch()
+        with tracing.span("graph.copy_out"):
+            return entry.copy_out()
+
+    def _lookup(self, eager, graphed, args, traced):
         leaves = pytree.tree_leaves(args)
         tensors = [x for x in leaves if isinstance(x, torch.Tensor)]
-        key = graph_key(graphed, leaves)
+        key = graph_key(graphed, leaves, traced)
         with self._lock:
             item = self._entries.get(key)
             if item is not None:
                 self._entries.move_to_end(key)
-        if item is None:
-            entry = self._capture(eager, graphed, args, tensors[0].device)
-            self._insert(key, entry, tensors)
-        else:
-            entry = item[0]
-        return entry.replay()
+        if item is not None:
+            return item[0]
+        entry = self._capture(eager, graphed, args, tensors[0].device,
+                              traced=traced)
+        self._insert(key, entry, tensors)
+        return entry
 
     def _insert(self, key, entry, tensors):
         finalizers = []
@@ -236,11 +330,19 @@ class GraphCache:
 _CACHE = GraphCache()
 
 
+def _on_cuda(args):
+    return any(isinstance(x, torch.Tensor) and x.is_cuda
+               for x in pytree.tree_leaves(args))
+
+
 def run(eager, graphed, *args):
     """``eager(*args)`` where no tensor among ``args`` lies on a CUDA
     device, else a replay of the CUDA graph of ``graphed(*args)`` (captured
-    at the first call with a new key)."""
-    if not any(isinstance(x, torch.Tensor) and x.is_cuda
-               for x in pytree.tree_leaves(args)):
+    at the first call with a new key). With tracing on, the span
+    ``graph.lookup`` starts here (on the CPU route it holds the check
+    alone)."""
+    if tracing.active():
+        return _CACHE.run_spanned(eager, graphed, args, check_device=True)
+    if not _on_cuda(args):
         return eager(*args)
     return _CACHE.run(eager, graphed, *args)

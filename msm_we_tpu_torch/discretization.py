@@ -18,6 +18,7 @@ import torch
 from ._logging import log
 from .features import _feat_parent_rows, mesh_row_feats
 from .parallel.sharded import build_sharded_pair_assign, build_sharded_single_assign
+from .tracing import span
 
 
 def _check_live_centers(strat, pbins, cbins):
@@ -26,6 +27,7 @@ def _check_live_centers(strat, pbins, cbins):
     strat.check_live_bins(np.concatenate([pbins, cbins]))
 
 
+@span("discretize")
 def launch_discretization(model):
     """Discretize every iteration's parent and child features in one pass
     (the reference's per-iteration fan-out, ``_clustering.py:1144-1242``)
@@ -136,6 +138,7 @@ def pair_discretize(model, strat, parent_bins, child_bins):
             mesh.gather_rows(cid, N).cpu().numpy())
 
 
+@span("cluster_fold")
 def run_streaming_batches(model, strat, feats, batches, delegated,
                           bin_mapper, all_filled, iters_to_use,
                           scan_small_batches=False):

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ._logging import log
+from .tracing import span
 
 
 def _pad_rows_to(a, n_pad, fill):
@@ -229,10 +230,16 @@ def featurize_all(model, force=False):
 
     With ``dedup_coordinates`` (default "auto"), parent features are
     gathered from the previous iteration's child features instead of
-    re-read and re-featurized -- see :func:`featurize_dedup`.
+    re-read and re-featurized -- see :func:`featurize_dedup`. The work (not
+    a cached return) is the span ``featurize``.
     """
     if model._features is not None and not force:
         return model._features
+    return _featurize_all(model)
+
+
+@span("featurize")
+def _featurize_all(model):
     model._raw_bins_cache = None  # bins follow the feature arrays
     model._pc_masks_cache = None  # and so do the basis/target masks
 

@@ -70,6 +70,7 @@ from .ops import linalg
 from .ops.kmeans import assign_flat, kmeans_fit
 from .ops.pca import IdentityCoordinates, MomentAccumulator, PairMomentAccumulator
 from .ops.stratified import StratifiedKmeans
+from .tracing import span
 
 SUPPORTED_DIMREDUCE = ["none", "pca", "tica", "vamp", "batch-pca"]
 
@@ -1555,6 +1556,7 @@ class modelWE:
                 state[key] = obj
         return state
 
+    @span("model_copy")
     def __deepcopy__(self, memo):
         """A copy on the same device (``post_cluster_model`` and the
         validation models keep their CUDA bank) and the same live mesh;

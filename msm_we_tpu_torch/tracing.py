@@ -1,18 +1,167 @@
-"""Per-stage timing and profiler traces of a build (counterpart of
+"""Per-stage timing, spans and profiler traces of the port (counterpart of
 ``msm_we_tpu/tracing.py``: ``StageTimer``, ``live_stage_display`` and
 ``profile_trace``, here over ``torch.profiler``). rich is imported only
 when the live display is enabled.
+
+Spans. ``span(name)`` times a block of code anywhere in the port:
+* inside a running :class:`StageTimer` stage of the same thread it is a
+  sub-span of that stage (``StageTimer.spans``), always on;
+* inside a :func:`collect` block of the same thread its seconds go to the
+  block's :class:`Collector`;
+* while a ``torch.profiler`` records, it (like every ``StageTimer`` stage)
+  also opens a ``record_function`` range of the same name, so stages and
+  spans sit on the trace's own clock, nested as they ran.
+Where none of these holds, entering a span reads one module-level count
+and the profiler's flag, and nothing else.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
+import threading
 import time
+
+import torch.autograd.profiler as _profiler
 
 from ._logging import log
 
-__all__ = ["StageTimer", "live_stage_display", "profile_trace"]
+__all__ = ["Collector", "StageTimer", "active", "collect", "collector",
+           "live_stage_display", "profile_trace", "span"]
+
+# Open collect() blocks and running StageTimer stages, in every thread: a
+# span with none of them and no profiler does nothing
+_listeners = 0
+_listeners_lock = threading.Lock()
+_local = threading.local()  # .timer: StageTimer; .collector: Collector
+
+
+def _listen(n):
+    global _listeners
+    with _listeners_lock:
+        _listeners += n
+
+
+def active():
+    """Whether a span would record anything: a ``collect()`` block or a
+    timer's stage is open somewhere, or a profiler records."""
+    return bool(_listeners) or _profiler._is_profiler_enabled
+
+
+def collector():
+    """The :class:`Collector` of this thread's innermost ``collect()``
+    block, or None."""
+    return getattr(_local, "collector", None)
+
+
+class span:
+    """``with span(name):`` times its block (see the module's docstring);
+    ``@span(name)`` times each call of the function it decorates."""
+
+    __slots__ = ("name", "_t0", "_rf", "_timer", "_slot", "_col")
+
+    def __init__(self, name):
+        self.name = name
+        self._t0 = None
+
+    def __call__(self, fn):
+        name = self.name
+
+        @functools.wraps(fn)
+        def timed(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return timed
+
+    def __enter__(self):
+        if not (_listeners or _profiler._is_profiler_enabled):
+            return self
+        self._rf = None
+        if _profiler._is_profiler_enabled:
+            self._rf = _profiler.record_function(self.name)
+            self._rf.__enter__()
+        self._timer = getattr(_local, "timer", None)
+        if self._timer is not None:
+            self._slot = self._timer._open_span(self.name)
+        self._col = getattr(_local, "collector", None)
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self._t0 is None:
+            return False
+        elapsed = time.perf_counter() - self._t0
+        self._t0 = None
+        if self._col is not None:
+            self._col.add(self.name, elapsed)
+        if self._timer is not None:
+            self._timer._close_span(self._slot, elapsed)
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
+        return False
+
+
+class Collector:
+    """What one :func:`collect` block recorded, read after the block.
+
+    ``spans``: the host seconds of each span, by name, in order.
+    ``device_ms``: device intervals by name, in milliseconds, one a run of
+    a traced source (the hot step's traced CUDA graph, ``_graph.py``).
+    ``counts``: device counters by name, summed over the block's runs.
+
+    A traced source has ``open(col)`` (called at its first run in the
+    block), ``read(col)`` (called before any traced source runs again,
+    and at the end of the block: what its last run left in device memory
+    would be overwritten) and ``close(col)`` (called at the end of the
+    block)."""
+
+    def __init__(self):
+        self.spans = {}
+        self.device_ms = {}
+        self.counts = {}
+        self._sources = []
+        self._last = None
+
+    def add(self, name, seconds):
+        self.spans.setdefault(name, []).append(seconds)
+
+    def using(self, source):
+        """Before a run of the traced ``source``: read what the last run of a
+        traced source left."""
+        self._settle()
+        if not any(s is source for s in self._sources):
+            self._sources.append(source)
+            source.open(self)
+        self._last = source
+
+    def _settle(self):
+        if self._last is not None:
+            self._last.read(self)
+            self._last = None
+
+    def close(self):
+        self._settle()
+        for s in self._sources:
+            s.close(self)
+        self._sources = []
+
+
+@contextlib.contextmanager
+def collect():
+    """Turn on step tracing in this thread for the block: spans record into
+    the yielded :class:`Collector`, and a CUDA graph step replays its traced
+    form (``_graph.py``). Everything stays in memory."""
+    col = Collector()
+    prev = collector()
+    _local.collector = col
+    _listen(1)
+    try:
+        yield col
+    finally:
+        _listen(-1)
+        _local.collector = prev
+        col.close()
 
 
 class StageTimer:
@@ -20,13 +169,22 @@ class StageTimer:
 
     ``on_change`` fires whenever a stage starts, finishes, or gains a note
     (the hook :func:`live_stage_display` uses to refresh its table).
+
+    While a stage runs, each :func:`span` of its thread is a sub-span of it:
+    ``spans`` holds ``(name, seconds, parent, stage)`` in the order they
+    opened, where ``parent`` is the index in ``spans`` of the enclosing span
+    (-1 where the stage itself encloses it) and ``stage`` the index in
+    ``stages`` of the innermost running stage. Sub-spans stay out of
+    ``stages``, ``total`` and ``report()``.
     """
 
     def __init__(self, on_change=None):
         self.stages = []  # list of (name, seconds, note)
+        self.spans = []  # list of (name, seconds, parent, stage)
         self.failed = set()  # indices of stages that raised
         self.running = None  # index of the innermost running stage
         self._stack = []  # indices of nested running stages
+        self._span_stack = []  # indices of this timer's open spans
         self._on_change = on_change
 
     def _notify(self):
@@ -43,6 +201,13 @@ class StageTimer:
         self._stack.append(idx)
         self.running = idx
         self._notify()
+        prev = getattr(_local, "timer", None)
+        _local.timer = self
+        _listen(1)
+        rf = None
+        if _profiler._is_profiler_enabled:
+            rf = _profiler.record_function(name)
+            rf.__enter__()
         t0 = time.perf_counter()
         try:
             yield self
@@ -51,12 +216,36 @@ class StageTimer:
             raise
         finally:
             elapsed = time.perf_counter() - t0
+            if rf is not None:
+                rf.__exit__(None, None, None)
+            _listen(-1)
+            _local.timer = prev
             n, _, note_now = self.stages[idx]
             self.stages[idx] = (n, elapsed, note_now)
             self._stack.pop()
             self.running = self._stack[-1] if self._stack else None
             self._notify()
             log.info(f"[stage] {name}: {elapsed:.3f}s {note_now}")
+
+    def _open_span(self, name):
+        parent = self._span_stack[-1] if self._span_stack else -1
+        self.spans.append((name, 0.0, parent, self.running))
+        self._span_stack.append(len(self.spans) - 1)
+        return self._span_stack[-1]
+
+    def _close_span(self, idx, seconds):
+        name, _, parent, stage = self.spans[idx]
+        self.spans[idx] = (name, seconds, parent, stage)
+        self._span_stack.remove(idx)
+
+    def self_seconds(self):
+        """``(name, seconds)`` of each stage, in ``stages``' order, less the
+        seconds of its direct sub-spans."""
+        own = [s for _n, s, _note in self.stages]
+        for _n, seconds, parent, stage in self.spans:
+            if parent == -1:
+                own[stage] -= seconds
+        return [(n, s) for (n, _s, _note), s in zip(self.stages, own)]
 
     def set_note(self, note):
         if self.stages:
@@ -70,17 +259,30 @@ class StageTimer:
         state["_on_change"] = None
         return state
 
+    def __setstate__(self, state):
+        # A timer pickled before sub-spans existed has none
+        self.__dict__.update({"spans": [], "_span_stack": [], **state})
+
     @property
     def total(self):
         return sum(s[1] for s in self.stages)
 
     def as_dict(self):
+        """The stages, their total, and the sub-spans, each with the name of
+        its parent (the enclosing span, else its stage)."""
+        def parent(p, stage):
+            return self.spans[p][0] if p >= 0 else self.stages[stage][0]
+
         return {
             "stages": [
                 {"name": n, "seconds": round(s, 4), "note": note}
                 for n, s, note in self.stages
             ],
             "total_seconds": round(self.total, 4),
+            "spans": [
+                {"name": n, "seconds": round(s, 4), "parent": parent(p, stage)}
+                for n, s, p, stage in self.spans
+            ],
         }
 
     def report(self):
@@ -166,6 +368,10 @@ def profile_trace(log_dir=None):
     )
     prof = profile(activities=activities)
     prof.trace_path = path
+    # Resolve the range operators before the trace starts: their first
+    # lookup (about 1 ms) would stretch the first stage's range
+    with _profiler.record_function("profile_trace"):
+        pass
     prof.__enter__()
     try:
         yield prof

@@ -245,8 +245,8 @@ class _FakeCapture:
     def __init__(self):
         self.n = 0
 
-    def __call__(self, eager, graphed, args, device):
-        assert eager is _step_eager and graphed is _step
+    def __call__(self, eager, graphed, args, device, traced=False):
+        assert eager is _step_eager and graphed is _step and not traced
         self.n += 1
         n = self.n
 

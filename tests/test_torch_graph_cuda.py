@@ -9,15 +9,18 @@ f32 flux adds with ``atomicAdd`` in a run-dependent order, so ``fm`` must
 lie within ``testing.flux_order_bound`` of an eager step's in each cell,
 and the graphed ``pss``, JtargetSS and residual must equal, bitwise, the
 eager tail run on the graphed ``fm``; dyadic weights (``entry()``) make the
-flux exact in any order, so there everything is bitwise.
+flux exact in any order, so there everything is bitwise. The traced graph
+of ``tracing.collect()`` gives the plain graph's outputs, counts the tail's
+rounds and times two intervals that fit in the step's device time.
 """
+import functools
 import gc
 
 import numpy as np
 import pytest
 import torch
 
-from msm_we_tpu_torch import _graph
+from msm_we_tpu_torch import _graph, tracing
 from msm_we_tpu_torch import step as tstep
 from msm_we_tpu_torch.entry import (
     TIERS,
@@ -208,3 +211,96 @@ def test_graphed_tail_equals_the_early_exit_loop(cuda_device, make, rounds):
                          _graph.steady_state_conditional, fm, basis, target)
         for g, r in zip(got, ref):
             assert torch.equal(g, r)
+
+
+# ------------------------------------------------------- the traced graph
+
+
+@pytest.fixture(scope="module")
+def problem0():
+    """The benchmark's problem (``make_problem`` seed 0, full size)."""
+    return make_problem(seed=0)
+
+
+def _traced_runs(fn, n):
+    """``n`` runs of ``fn`` under ``collect()``, after one that captures the
+    traced graph: ``(outputs, collector)``."""
+    with tracing.collect():
+        fn()
+    with tracing.collect() as col:
+        outs = _runs(fn, n)
+    return outs, col
+
+
+@pytest.mark.cuda
+def test_the_traced_graph_gives_the_plain_graphs_outputs(cuda_device, problems):
+    fn, args = entry("cuda")
+    plain = _runs(lambda: fn(*args), 2)
+    traced, col = _traced_runs(lambda: fn(*args), 2)
+    for g in traced:  # dyadic weights: bitwise
+        for a, b in zip(g, plain[0]):
+            assert torch.equal(a, b)
+    assert len(col.device_ms["assign_flux"]) == len(col.device_ms["tail"]) == 2
+    for tier in TIERS:
+        s = stage_problem(problems[0], tier, cuda_device)
+        plain = _runs(lambda: hot_step(s, tier), 4)
+        traced, col = _traced_runs(lambda: hot_step(s, tier), 4)
+        _assert_like_eager(traced, plain, s["w"])
+        assert {n: len(v) for n, v in col.spans.items()} == {
+            "graph.lookup": 4, "graph.launch": 4, "graph.copy_out": 4}
+
+
+@pytest.mark.cuda
+def test_tail_rounds_count_each_replays_early_exit_rounds(cuda_device, problem0):
+    s = stage_problem(problem0, "two_transform", cuda_device)
+    outs, col = _traced_runs(lambda: hot_step(s, "two_transform"), 8)
+    basis, target = _state_masks(s["n_states"], cuda_device)
+    want = sum(steady_state_early_exit(o["fm"], basis, target)[-1] for o in outs)
+    assert col.counts["tail_rounds"] == want
+
+
+@pytest.mark.cuda
+def test_tail_rounds_read_16_a_step_at_tol_0(cuda_device, problem0):
+    s = stage_problem(problem0, "two_transform", cuda_device)
+    fm = hot_step(s, "two_transform")["fm"]
+    basis, target = _state_masks(s["n_states"], cuda_device)
+    assert steady_state_early_exit(fm, basis, target, tol=0.0)[-1] == 16
+    eager = functools.partial(tstep.steady_state_from_flux, tol=0.0)
+    graphed = functools.partial(_graph.steady_state_conditional, tol=0.0)
+    _outs, col = _traced_runs(lambda: _graph.run(eager, graphed, fm, basis, target), 3)
+    assert col.counts["tail_rounds"] == 48
+
+
+@pytest.mark.cuda
+def test_the_device_intervals_fit_in_the_steps_device_time(cuda_device, problem0):
+    """Assign + flux and the tail, timed by the traced graph's event nodes
+    in synchronised replays, sum to no more than a synchronised plain
+    step's device time by events around its launch, and to 80-105% of a
+    plain step's by events around replays queued back to back behind a
+    spin (no host time in it, no launch latency: a replay that starts on an
+    idle device and its event nodes may take a few microseconds more)."""
+    s = stage_problem(problem0, "two_transform", cuda_device)
+    n = 20
+    _outs, col = _traced_runs(lambda: hot_step(s, "two_transform"), n)
+    af, tail = (sum(col.device_ms[k]) / n for k in ("assign_flux", "tail"))
+    alone = []
+    for _ in range(n):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        hot_step(s, "two_transform")
+        b.record()
+        b.synchronize()
+        alone.append(a.elapsed_time(b))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(int(4e7))  # ~20 ms at 2 GHz: n steps queue meanwhile
+    ev[1].record()
+    for _ in range(n):
+        hot_step(s, "two_transform")
+    ev[2].record()
+    torch.cuda.synchronize()
+    queued = ev[1].elapsed_time(ev[2]) / n
+    assert ev[0].elapsed_time(ev[1]) > 5.0  # the spin outlasted the queueing
+    assert 0 < af and 0 < tail
+    assert af + tail <= sorted(alone)[n // 2]
+    assert 0.8 * queued <= af + tail <= 1.05 * queued

@@ -1,7 +1,11 @@
 """``profile_trace`` and ``build_analyze_model(profile_dir=...)`` of the
 port on the CPU: one Chrome trace file that parses and holds events, the
 build's results bitwise unchanged, the trace written also when the block
-raises, and ``profile_trace(None)`` a no-op.
+raises, and ``profile_trace(None)`` a no-op. Spans (``tracing.span``):
+sub-spans of a ``StageTimer`` stage, the same names as ranges of the
+profiler's trace, nested as they ran, ``collect()`` and its collector, no
+profiler range entered where nothing records, and the graph cache's spans
+and traced entries (a fake capture: no card here).
 """
 import glob
 import json
@@ -11,21 +15,24 @@ import numpy as np
 import pytest
 import torch
 
-from msm_we_tpu_torch import ArrayWEDataset, RectilinearBinMapper, modelWE
+from msm_we_tpu_torch import ArrayWEDataset, RectilinearBinMapper, _graph, modelWE
+from msm_we_tpu_torch import tracing
 from msm_we_tpu_torch.data import generate_we_arrays, generate_west_h5
-from msm_we_tpu_torch.tracing import profile_trace
+from msm_we_tpu_torch.tracing import StageTimer, collect, profile_trace, span
 
 torch.set_num_threads(1)
 
 
-def _build(source, **kw):
+def _build(source, groups=0, **kw):
     m = modelWE(device="cpu")
     m.build_analyze_model(
         file_paths=source,
         ref_struct={"coords": None, "nAtoms": 4, "coord_ndim": 3},
         modelName="traced", basis_pcoord_bounds=[[9.0, 10.0]],
         target_pcoord_bounds=[[0.0, 1.0]], dimreduce_method="pca", tau=1.0,
-        n_clusters=3, cross_validation_groups=0, show_live_display=False,
+        n_clusters=3, cross_validation_groups=groups,
+        cross_validation_blocks=4, allow_validation_failure=True,
+        show_live_display=False,
         step_kwargs={"clustering": {
             "user_bin_mapper": RectilinearBinMapper([np.linspace(0, 10, 13)]),
             "scan_small_batches": True}},
@@ -114,3 +121,213 @@ def test_profile_dir_trace_survives_a_failing_build(tmp_path):
     assert len(files) == 1
     with open(files[0]) as fp:
         assert "traceEvents" in json.load(fp)
+
+
+# ------------------------------------------------------------------- spans
+
+# The sub-spans of a build with block validation (``model_copy``: the
+# post-clustering copy and one a validation group)
+BUILD_SPANS = ["featurize", "cluster_fold", "discretize", "model_copy",
+               "model_copy", "model_copy"]
+
+
+def _arrays():
+    return ArrayWEDataset(generate_we_arrays(12, 32, seed=17))
+
+
+def _ranges(events, name):
+    return sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                  if e["name"] == name and e.get("cat") == "user_annotation")
+
+
+def test_sub_spans_nest_under_their_stage():
+    timer = StageTimer()
+    with span("before"):  # no stage runs: recorded nowhere
+        pass
+    with timer.stage("A"):
+        with span("x"):
+            with span("y"):
+                pass
+        with span("z"):
+            pass
+    with timer.stage("B", note="n"):
+        pass
+    assert [n for n, _s, _note in timer.stages] == ["A", "B"]
+    assert [(n, parent, stage) for n, _s, parent, stage in timer.spans] == [
+        ("x", -1, 0), ("y", 0, 0), ("z", -1, 0)]
+    (_a, a, _), (_b, b, _) = timer.stages
+    x, y, z = (sec for _n, sec, _p, _st in timer.spans)
+    assert 0 <= y <= x and x + z <= a
+    assert timer.total == a + b
+    assert timer.self_seconds() == [("A", a - x - z), ("B", b)]
+    d = timer.as_dict()
+    assert [s["name"] for s in d["stages"]] == ["A", "B"]
+    assert d["total_seconds"] == round(a + b, 4)
+    assert [(s["name"], s["parent"]) for s in d["spans"]] == [
+        ("x", "A"), ("y", "x"), ("z", "A")]
+    report = timer.report()
+    assert "A" in report and "x" not in report.split()
+
+
+@pytest.mark.parametrize("groups,spans", [(0, BUILD_SPANS[:3]), (2, BUILD_SPANS)],
+                         ids=["no_validation", "validation"])
+def test_a_build_times_its_sub_stages(groups, spans):
+    m = _build(_arrays(), groups=groups)
+    t = m.stage_timings
+    assert [n for n, *_ in t.spans] == spans
+    stages = [n for n, _s, _note in t.stages]
+    parents = [stages[st] for _n, _s, p, st in t.spans if p == -1]
+    assert parents == (["Clustering"] * 4 + ["Cross-validation"] * 2)[:len(spans)]
+    clustering = dict(t.self_seconds())["Clustering"]
+    assert 0 <= clustering < dict((n, s) for n, s, _ in t.stages)["Clustering"]
+
+
+def test_a_profiled_build_shows_its_stages_and_spans_as_ranges(tmp_path):
+    """Every stage and sub-span is a range of the same name in the trace,
+    inside its parent's range, lasting what the timer says (10% or 2 ms)."""
+    m = _build(_arrays(), groups=2, profile_dir=str(tmp_path))
+    _path, events = _events(tmp_path)
+    t = m.stage_timings
+    stage_ranges = [_ranges(events, n) for n, _s, _note in t.stages]
+    assert all(len(r) == 1 for r in stage_ranges)
+    seen, span_ranges = {}, []
+    for name, *_ in t.spans:
+        span_ranges.append(_ranges(events, name)[seen.get(name, 0)])
+        seen[name] = seen.get(name, 0) + 1
+    assert {n: len(_ranges(events, n)) for n in seen} == seen
+    timed = [(r[0], s) for r, (_n, s, _note) in zip(stage_ranges, t.stages)] + [
+        (r, s) for r, (_n, s, _p, _st) in zip(span_ranges, t.spans)]
+    for (a, b), seconds in timed:
+        assert abs((b - a) / 1e6 - seconds) <= max(0.1 * seconds, 2e-3)
+    for (a, b), (_n, _s, parent, stage) in zip(span_ranges, t.spans):
+        pa, pb = span_ranges[parent] if parent >= 0 else stage_ranges[stage][0]
+        assert pa <= a and b <= pb + 1.0  # the trace rounds to 1 ns
+
+
+def test_spans_enter_no_range_where_nothing_records(monkeypatch):
+    def no_range(*_a, **_k):
+        raise AssertionError("record_function entered with no profiler")
+
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", no_range)
+    assert not tracing.active()
+    with span("alone"):
+        pass
+    with collect() as col:
+        assert tracing.active()
+        with span("collected"):
+            pass
+    m = _build(_arrays(), groups=2)
+    assert not tracing.active()
+    assert list(col.spans) == ["collected"] and len(col.spans["collected"]) == 1
+    assert [n for n, *_ in m.stage_timings.spans] == BUILD_SPANS
+
+
+def test_collect_changes_no_build_output():
+    plain = _build(_arrays(), groups=2)
+    with collect() as col:
+        traced = _build(_arrays(), groups=2)
+    assert tracing.collector() is None
+    assert {n: len(v) for n, v in col.spans.items()} == {
+        "featurize": 1, "cluster_fold": 1, "discretize": 1, "model_copy": 3}
+    np.testing.assert_array_equal(np.concatenate(traced.dtrajs),
+                                  np.concatenate(plain.dtrajs))
+    np.testing.assert_array_equal(traced.fluxMatrixRaw, plain.fluxMatrixRaw)
+    np.testing.assert_array_equal(traced.pSS, plain.pSS)
+    assert traced.JtargetSS == plain.JtargetSS
+    for v, w in zip(traced.validation_models, plain.validation_models):
+        np.testing.assert_array_equal(v.pSS, w.pSS)
+
+
+def test_collect_blocks_nest_and_restore():
+    with collect() as outer:
+        with collect() as inner:
+            with span("s"):
+                pass
+        assert tracing.collector() is outer
+        with span("t"):
+            pass
+    assert tracing.collector() is None
+    assert list(inner.spans) == ["s"] and list(outer.spans) == ["t"]
+
+
+class _FakeEntry:
+    """A captured step without a card: counts its launches; a traced one
+    reports one device interval a launch and a counter of two a launch."""
+
+    def __init__(self, traced):
+        self.traced = traced
+        self.runs = 0
+        self.calls = []
+
+    def replay(self):
+        self.launch()
+        return self.copy_out()
+
+    def launch(self):
+        self.runs += 1
+
+    def copy_out(self):
+        return self.runs
+
+    def open(self, col):
+        self.calls.append("open")
+
+    def read(self, col):
+        self.calls.append("read")
+        col.device_ms.setdefault("tail", []).append(float(self.runs))
+
+    def close(self, col):
+        self.calls.append("close")
+        col.counts["tail_rounds"] = 2 * self.runs
+
+
+class _FakeCapture:
+    def __init__(self):
+        self.entries = []
+
+    def __call__(self, eager, graphed, args, device, traced=False):
+        self.entries.append(_FakeEntry(traced))
+        return self.entries[-1]
+
+
+def _step(a, b):
+    return a + b
+
+
+def test_graph_runs_record_spans_and_a_traced_entry_under_collect(monkeypatch):
+    fake = _FakeCapture()
+    cache = _graph.GraphCache(capture=fake)
+    a = torch.zeros(2)
+    with monkeypatch.context() as mp:
+        def no_span(name):
+            raise AssertionError(f"span {name} opened with tracing off")
+
+        mp.setattr(_graph.tracing, "span", no_span)
+        assert cache.run(_step, _step, a, a) == 1
+    with collect() as col:
+        runs = [cache.run(_step, _step, a, a) for _ in range(3)]
+    assert cache.run(_step, _step, a, a) == 2  # the plain entry again
+    plain, traced = fake.entries
+    assert (plain.traced, traced.traced, len(cache)) == (False, True, 2)
+    assert runs == [1, 2, 3] and plain.calls == []
+    assert {n: len(v) for n, v in col.spans.items()} == {
+        "graph.lookup": 3, "graph.launch": 3, "graph.copy_out": 3}
+    # Each launch's interval is read before the next, the last at the end
+    assert traced.calls == ["open", "read", "read", "read", "close"]
+    assert col.device_ms == {"tail": [1.0, 2.0, 3.0]}
+    assert col.counts == {"tail_rounds": 6}
+    assert _graph.graph_key(_step, [a, a]) in cache
+    assert _graph.graph_key(_step, [a, a], traced=True) in cache
+
+
+def test_the_cpu_route_under_collect_spans_its_check_alone():
+    def never(*_a):
+        raise AssertionError("the graphed form ran on CPU tensors")
+
+    a = torch.arange(3.0)
+    before = len(_graph._CACHE)
+    with collect() as col:
+        out = _graph.run(_step, never, a, a)
+    assert torch.equal(out, 2 * a) and len(_graph._CACHE) == before
+    assert {n: len(v) for n, v in col.spans.items()} == {"graph.lookup": 1}
+    assert col.device_ms == {} and col.counts == {}
