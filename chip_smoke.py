@@ -198,6 +198,11 @@ KERNEL_INFO = {
     "pair_assign_scores": dict(
         pallas="H4", replaces="msm_we_tpu/ops/pallas_kernels.py:203",
         source="msm_we_tpu_torch/csrc/pair_assign.cu"),
+    # The steady-state tail: no Pallas call, XLA's while_loop in the JAX
+    # package; timed by the main phase's steady_state_rounds lines
+    "steady_tail": dict(
+        pallas="none", replaces="msm_we_tpu/parallel/sharded.py:538",
+        source="msm_we_tpu_torch/csrc/steady_tail.cu"),
 }
 # Published H100 SXM peaks (NVIDIA H100 datasheet): HBM bytes/s and
 # f32 FLOP/s outside the tensor cores (every assignment stays exact f32)
@@ -737,9 +742,9 @@ def _build_parity(data, scan):
 
 
 # The wrappers each graph of the main path calls
-GRAPH_KERNELS = {"two_transform": ("transform_assign",),
-                 "dedup": ("transform_assign_child", "assign_flux"),
-                 "entry": ("assign_flux",)}
+GRAPH_KERNELS = {"two_transform": ("transform_assign", "steady_tail"),
+                 "dedup": ("transform_assign_child", "assign_flux", "steady_tail"),
+                 "entry": ("assign_flux", "steady_tail")}
 
 
 def _step_profile(fn, reps):
@@ -816,60 +821,96 @@ def _max_dev(outs, ref, key):
 
 def _tail_rounds(fm, reps):
     """The steady-state tail alone on ``fm``, each form captured into a
-    CUDA graph of its own: with no extra round; with ``max_extra_squarings``
-    (16) rounds guarded by ``torch.where`` (every round runs its kernels);
-    with the rounds as conditional nodes (a round after convergence
-    launches no squaring); and the conditional nodes at ``tol = 0``, below
-    the residual floor, so that all 16 bodies run (what a step whose tail
-    does not converge pays). Replay ms (CUDA events), the trace's device ms
-    and operations (lower bounds), and whether ``T``, ``p``, JtargetSS and
-    the residual equal the plain early-exit loop's at the same ``tol``
-    bitwise (required but for ``none``); the extra squarings that loop
-    took at each ``tol``."""
+    CUDA graph of its own. The PyTorch tail (the route above
+    ``ops.steady_tail.S_MAX``): with no extra round; with
+    ``max_extra_squarings`` (16) rounds guarded by ``torch.where`` (every
+    round runs its kernels); with the rounds as conditional nodes (a round
+    after convergence launches no squaring); and the conditional nodes at
+    ``tol = 0``, below the residual floor, so that all 16 bodies run (what a
+    step whose tail does not converge pays). Each must equal the plain
+    early-exit loop's ``T``, ``p``, JtargetSS and residual at the same
+    ``tol`` bitwise (but for ``none``). The tail kernel (``fused``, and
+    ``fused_taken`` at ``tol = 0``): its replay must equal the eager
+    kernel bitwise, the early-exit loop within
+    ``testing.tail_order_excess``, and its residual must lie within
+    ``testing.tail_residual_excess`` of its own ``T`` and ``p`` and on the
+    loop's side of ``tol``; its line adds the kernel's device ms, its bound
+    (f32 operations of the squarings taken over 67 TFLOP/s, or the flux
+    matrix in and T out over 3.35 TB/s) and the plain version's ms (the
+    PyTorch tail with ``torch.where`` rounds, eagerly). Replay ms (CUDA events), the trace's device
+    ms and operations (lower bounds); the extra squarings the loop and the
+    kernel took at each ``tol``."""
     import torch
 
     from msm_we_tpu_torch import _graph, step
-    from msm_we_tpu_torch.testing import steady_state_early_exit
+    from msm_we_tpu_torch.ops import steady_tail as st
+    from msm_we_tpu_torch.testing import (
+        steady_state_early_exit,
+        tail_order_excess,
+        tail_residual_excess,
+    )
 
     S = fm.shape[0]
     ids = torch.arange(S, device=fm.device)
     basis, target = ids == S - 2, ids == S - 1
     ref = {tol: steady_state_early_exit(fm, basis, target, tol=tol)
            for tol in (1e-6, 0.0)}
-    res = dict(extra_squarings=ref[1e-6][4], extra_squarings_tol_0=ref[0.0][4])
-    require(ref[0.0][4] == 16, f"the early-exit loop took {ref[0.0][4]} "
-                               f"extra squarings at tol = 0, not 16")
+    fused_rounds = {tol: int(st.steady_tail(fm, basis, target, tol=tol)[4])
+                    for tol in (1e-6, 0.0)}
+    res = dict(n_states=S, extra_squarings=ref[1e-6][4],
+               extra_squarings_tol_0=ref[0.0][4],
+               fused_extra_squarings=fused_rounds[1e-6],
+               fused_extra_squarings_tol_0=fused_rounds[0.0])
+    require(ref[0.0][4] == 16 and fused_rounds[0.0] == 16,
+            f"the early-exit loop and the kernel took {ref[0.0][4]} and "
+            f"{fused_rounds[0.0]} extra squarings at tol = 0, not 16")
 
-    def none():
-        return step.steady_state_from_flux(fm, basis, target,
-                                           max_extra_squarings=0)
+    def torch_tail(rounds, n=16, tol=1e-6):
+        return lambda: step._steady_state(fm, basis, target, 512, tol, n, rounds)
 
-    def where():
-        return step.steady_state_from_flux(fm, basis, target)
+    def kernel(tol):
+        return lambda: st.steady_tail(fm, basis, target, tol=tol)[:4]
 
-    def cond():
-        return _graph.steady_state_conditional(fm, basis, target)
-
-    def where_0():
-        return step.steady_state_from_flux(fm, basis, target, tol=0.0)
-
-    def cond_0():
-        return _graph.steady_state_conditional(fm, basis, target, tol=0.0)
-
-    forms = {"none": (none, none, 1e-6), "where": (where, where, 1e-6),
-             "conditional": (where, cond, 1e-6),
-             "conditional_taken": (where_0, cond_0, 0.0)}
+    where = torch_tail(step._where_rounds)
+    forms = {"none": (torch_tail(step._where_rounds, 0),) * 2 + (1e-6,),
+             "where": (where, where, 1e-6),
+             "conditional": (where, torch_tail(_graph.conditional_rounds), 1e-6),
+             "conditional_taken": (torch_tail(step._where_rounds, tol=0.0),
+                                   torch_tail(_graph.conditional_rounds, tol=0.0),
+                                   0.0),
+             "fused": (kernel(1e-6), kernel(1e-6), 1e-6),
+             "fused_taken": (kernel(0.0), kernel(0.0), 0.0)}
     for form, (eager, graphed, tol) in forms.items():
         cap = _graph.capture(eager, graphed, (), fm.device)
         got = cap.replay()
         dev_ms, ops, _k = _step_profile(cap.replay, reps)
-        bitwise = all(torch.equal(g, r) for g, r in zip(got, ref[tol][:4]))
-        res[form] = dict(ms=cuda_ms(cap.replay, reps), device_ms_lower_bound=dev_ms,
-                         device_ops_lower_bound=ops, bitwise=bitwise,
-                         p_diff=float((got[1] - ref[tol][1]).abs().max()))
-        require(bitwise or form == "none",
-                f"tail [{form}] differs from the early-exit loop (p by "
-                f"{res[form]['p_diff']})")
+        line = dict(ms=cuda_ms(cap.replay, reps), device_ms_lower_bound=dev_ms,
+                    device_ops_lower_bound=ops,
+                    p_diff=float((got[1] - ref[tol][1]).abs().max()))
+        if form.startswith("fused"):
+            line["bitwise_eager"] = all(
+                torch.equal(g, e) for g, e in zip(got, eager()))
+            line["excess"] = dict(tail_order_excess(got, ref[tol][:4]),
+                                  **tail_residual_excess(got, ref[tol], tol))
+            n = 9 + fused_rounds[tol]
+            t_ops = n * 2.0 * S ** 3 / F32_FLOPS
+            t_bytes = 2 * 4.0 * S * S / HBM_BYTES_PER_S
+            line.update(
+                kernel_ms=device_ms(eager, "steady_tail_kernel", reps),
+                bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops > t_bytes else "bytes",
+                plain_ms=cuda_ms(torch_tail(step._where_rounds, tol=tol), reps))
+            require(line["bitwise_eager"] and all(
+                v <= 0 for v in line["excess"].values()),
+                f"tail [{form}] at S = {S}: replay bitwise the eager kernel "
+                f"{line['bitwise_eager']}, excess over the bounds of the "
+                f"early-exit loop and of its own residual {line['excess']}")
+        else:
+            line["bitwise"] = all(torch.equal(g, r) for g, r in zip(got, ref[tol][:4]))
+            require(line["bitwise"] or form == "none",
+                    f"tail [{form}] differs from the early-exit loop (p by "
+                    f"{line['p_diff']})")
+        res[form] = line
     return res
 
 
@@ -967,6 +1008,7 @@ def phase_main(args, summary):
 
     from msm_we_tpu_torch.data import generate_we_arrays
     from msm_we_tpu_torch.entry import TIERS, entry, hot_step, stage_problem
+    from msm_we_tpu_torch.ops import steady_tail as st
     from msm_we_tpu_torch.ops import stratified_assign as sa
     from msm_we_tpu_torch.testing import make_problem
 
@@ -1045,6 +1087,11 @@ def phase_main(args, summary):
         emit(dict(phase="steady_state_rounds", tier=tier,
                   **_tail_rounds(fm, args.reps)))
     del staged
+    dense = torch.tensor(np.random.default_rng(7).random((st.S_MAX, st.S_MAX)),
+                         dtype=torch.float32, device=dev)
+    emit(dict(phase="steady_state_rounds", tier="dense_s_max",
+              **_tail_rounds(dense, args.reps)))
+    del dense
     emit(dict(phase="hot_step_reference", **_hot_step_ref_check()))
     small = generate_we_arrays(n_iterations=30, n_segments=200, seed=17)
     for scan in (False, True):

@@ -7,9 +7,11 @@ first call with a new key warms up on a side stream with ``eager(*args)``
 (that builds the kernel library and cuBLAS's workspace, neither of which
 may happen inside a capture), captures ``graphed(*args)`` into a
 ``torch.cuda.CUDAGraph`` on the same stream, and replays it; later calls
-with the same key only replay. ``graphed`` is ``eager`` with the
-steady-state tail's extra squarings as conditional nodes
-(:func:`steady_state_conditional`): the same kernels at the same shapes.
+with the same key only replay. ``graphed`` is ``eager`` with
+:func:`steady_state_conditional` as its steady-state tail: the same kernels
+at the same shapes (one kernel for the tail of a CUDA f32 flux matrix of at
+most ``ops.steady_tail.S_MAX`` states, else the tail's extra squarings as
+conditional nodes).
 
 * The key is ``graphed`` itself plus every leaf of ``args``: a tensor by
   ``(data_ptr, shape, stride, dtype, device)``, anything else by value. A
@@ -35,15 +37,19 @@ context) and ``graph.copy_out`` (the output clones and the unflatten).
 Under ``collect()`` the step replays its traced graph, a capture of its
 own (``graph_key(..., traced=True)``): the same kernels, with timing
 events recorded as event nodes at the graph's start, where the
-steady-state tail begins and at its end, and a device ``int32`` counter
-that each conditional round of the tail adds one to. The block's
-collector reads each replay's two intervals, ``device_ms["assign_flux"]``
-and ``device_ms["tail"]``, before the next traced replay overwrites them,
-and the counter, ``counts["tail_rounds"]``, once when the block closes.
+steady-state tail begins and at its end, and a device ``int32`` counter of
+the tail's extra rounds (the tail kernel adds the rounds it took; on the
+PyTorch route each conditional round adds one). The block's collector reads
+each replay's two intervals, ``device_ms["assign_flux"]`` and
+``device_ms["tail"]``, before the next traced replay overwrites them, and
+counts the replays whose tail took the kernel, ``counts["tail_fused"]``;
+it reads the counter, ``counts["tail_rounds"]``, once when the block
+closes.
 With neither on, a run opens no span: it reads one count and the
 profiler's flag in :func:`run` and again in ``GraphCache.run``.
 
-Why two forms of the tail: a conditional node exists only in a graph, and
+Why two forms of the PyTorch tail (the route above ``S_MAX`` states, for
+other dtypes and on the CPU): a conditional node exists only in a graph, and
 the eager and CPU routes may not read the device, so they keep every round
 and let a ``torch.where`` on the flag discard it
 (``step.steady_state_from_flux``). Inside a capture ``with
@@ -63,6 +69,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from . import step, tracing
+from .ops import steady_tail
 from .ops._ext import check, library
 
 __all__ = ["CACHE_SIZE", "GraphCache", "conditional", "conditional_rounds",
@@ -89,11 +96,12 @@ def graph_key(fn, leaves, traced=False):
 class _Captured:
     """A captured graph and its static outputs (``bodies``: the graphs of
     its conditional nodes, kept with it). A traced graph also holds its
-    three timing events (``marks``: start, tail, end) and its round
-    counter (``rounds``), and is a traced source of ``tracing.Collector``."""
+    three timing events (``marks``: start, tail, end), its round counter
+    (``rounds``) and whether its tail is the tail kernel (``fused``), and is
+    a traced source of ``tracing.Collector``."""
 
     def __init__(self, graph, device, outputs, spec, bodies, marks=None,
-                 rounds=None):
+                 rounds=None, fused=False):
         self.graph = graph
         self.device = device
         self.outputs = outputs
@@ -101,6 +109,7 @@ class _Captured:
         self.bodies = bodies
         self.marks = marks
         self.rounds = rounds
+        self.fused = fused
 
     def launch(self):
         with torch.cuda.device(self.device):
@@ -124,6 +133,7 @@ class _Captured:
         end.synchronize()
         col.device_ms.setdefault("assign_flux", []).append(start.elapsed_time(tail))
         col.device_ms.setdefault("tail", []).append(tail.elapsed_time(end))
+        col.counts["tail_fused"] = col.counts.get("tail_fused", 0) + int(self.fused)
 
     def close(self, col):
         col.counts["tail_rounds"] = col.counts.get("tail_rounds", 0) + int(self.rounds)
@@ -131,7 +141,8 @@ class _Captured:
 
 class _Capture:
     """What :func:`conditional` and the tail need of the capture under way
-    (``marks`` and ``rounds``: a traced capture's events and counter)."""
+    (``marks`` and ``rounds``: a traced capture's events and counter;
+    ``fused``: set where the tail took the tail kernel)."""
 
     def __init__(self, stream, marks=None, rounds=None):
         self.stream = stream
@@ -139,6 +150,7 @@ class _Capture:
         self.bodies = []
         self.marks = marks
         self.rounds = rounds
+        self.fused = False
 
 
 def _check_precision():
@@ -197,13 +209,22 @@ def conditional_rounds(Tn, p, residual, T, tol, n_rounds):
 
 def steady_state_conditional(fm, basis_mask, target_mask, n_iters=512,
                              tol=1e-6, max_extra_squarings=16):
-    """``step.steady_state_from_flux`` for a capture by :func:`capture`,
-    its extra squarings as conditional nodes (:func:`conditional_rounds`):
-    the same result, and a round after convergence costs no squaring. A
-    traced capture records its tail event here."""
+    """``step.steady_state_from_flux`` for a capture by :func:`capture`: the
+    tail kernel where ``ops.steady_tail.uses_kernel`` takes it (one kernel
+    node, its loop inside; a traced capture hands it the round counter),
+    else the extra squarings as conditional nodes
+    (:func:`conditional_rounds`): the same result as the eager route, and
+    a round after convergence costs no squaring. A traced capture records
+    its tail event here, right before the tail's first launch."""
     cap = getattr(_local, "capture", None)
     if cap is not None and cap.marks is not None:
         cap.marks[1].record(cap.stream)
+    if steady_tail.uses_kernel(fm.device, fm.dtype, fm.shape[0]):
+        if cap is not None:
+            cap.fused = True
+        return steady_tail.steady_tail(
+            fm, basis_mask, target_mask, n_iters, tol, max_extra_squarings,
+            counter=None if cap is None else cap.rounds)[:4]
     return step._steady_state(fm, basis_mask, target_mask, n_iters, tol,
                               max_extra_squarings, conditional_rounds)
 
@@ -238,7 +259,8 @@ def capture(eager, graphed, args, device, traced=False):
         finally:
             _local.capture = None
     outputs, spec = pytree.tree_flatten(out)
-    return _Captured(graph, device, outputs, spec, cap.bodies, marks, rounds)
+    return _Captured(graph, device, outputs, spec, cap.bodies, marks, rounds,
+                     cap.fused)
 
 
 class GraphCache:

@@ -1,7 +1,8 @@
 // Device helpers shared by the assignment kernels of this directory
 // (stratified_assign.cu, pair_assign.cu, assign_flux.cu): the (score, id)
 // order every kernel reduces by, mask reads, a binary search, the override
-// orders and the cp.async copies. They live in an anonymous namespace, so
+// orders and the cp.async copies (steady_tail.cu stages its squarings with
+// them too). They live in an anonymous namespace, so
 // each source that includes them compiles its own copy.
 #pragma once
 

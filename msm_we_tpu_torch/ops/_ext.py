@@ -28,6 +28,7 @@ NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 # argtypes of each extern "C" entry point in csrc/*.cu
 _SIGNATURES = {
@@ -38,6 +39,7 @@ _SIGNATURES = {
     "msm_pair_plan_tiles": [_P, _I, _P, _I, _P, _P, _P, _I, _P],
     "msm_pair_assign": [_P] * 8 + [_I] + [_P] * 3 + [_I] * 4 + [_P] * 5,
     "msm_graph_add_if": [_P, _P, _P],
+    "msm_steady_tail": [_P] * 3 + [_I] * 3 + [_F] + [_P] * 8,
 }
 
 _lock = threading.Lock()

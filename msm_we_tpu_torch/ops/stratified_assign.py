@@ -53,6 +53,7 @@ import torch
 
 from ._ext import check, library
 from .kmeans import masked_scores
+from .steady_tail import steady_tail
 
 __all__ = [
     "transform_assign_child",
@@ -607,11 +608,14 @@ def pair_assign(fp, fc, pbins, cbins, centers, center_bin, valid,
     return cidx if not pair else (pidx, cidx)
 
 
+# Every kernel wrapper of the port, by name: one reset and one read of their
+# launch counts (the steady-state tail's kernel, ``ops/steady_tail.py``, too)
 KERNELS = {
     "transform_assign_child": transform_assign_child,
     "transform_assign": transform_assign,
     "assign_flux": assign_flux,
     "pair_assign": pair_assign,
+    "steady_tail": steady_tail,
 }
 # The CUDA kernel each wrapper launches, by its name in a trace (H1 and H2
 # launch one template)
@@ -620,6 +624,7 @@ KERNEL_SYMBOLS = {
     "transform_assign": "stratified_assign_kernel",
     "assign_flux": "assign_flux_kernel",
     "pair_assign": "pair_assign_kernel",
+    "steady_tail": "steady_tail_kernel",
 }
 for _fn in KERNELS.values():
     _fn.launches = 0

@@ -21,6 +21,7 @@ import math
 import torch
 
 from ._device import f64_threshold
+from .ops import steady_tail
 from .ops.stratified_assign import assign_flux, pair_assign
 
 __all__ = [
@@ -248,12 +249,18 @@ def steady_state_from_flux(fm, basis_mask, target_mask, n_iters=512,
     ``ceil(log2(n_iters))`` squarings, then at most ``max_extra_squarings``
     rounds, each taken only while the residual ``||p T - p||_1`` exceeds
     ``tol`` (the JAX package's ``while_loop``). The check stays on the
-    device, with no host read: every round computes its candidate and
-    keeps it only while the 0-dim flag ``residual > tol`` holds, so the
-    result is the early-exit loop's (the first round whose residual is
-    ``<= tol``, else the last). A CUDA graph of a step takes the rounds as
-    conditional nodes instead (``_graph.steady_state_conditional``).
-    Returns ``(T, p, flux, residual)``.
+    device, with no host read, and the result is the early-exit loop's (the
+    first round whose residual is ``<= tol``, else the last). A CUDA f32
+    ``fm`` of at most ``ops.steady_tail.S_MAX`` states takes one kernel
+    (``ops.steady_tail.steady_tail``) that runs the whole tail, its loop
+    included. Otherwise every round computes its candidate and keeps it
+    only while the 0-dim flag ``residual > tol`` holds, and a CUDA graph of
+    a step takes the rounds as conditional nodes instead
+    (``_graph.steady_state_conditional``). Returns ``(T, p, flux,
+    residual)``.
     """
+    if steady_tail.uses_kernel(fm.device, fm.dtype, fm.shape[0]):
+        return steady_tail.steady_tail(fm, basis_mask, target_mask, n_iters,
+                                       tol, max_extra_squarings)[:4]
     return _steady_state(fm, basis_mask, target_mask, n_iters, tol,
                          max_extra_squarings, _where_rounds)

@@ -5,9 +5,11 @@ Counterpart of ``msm_we_tpu/testing.py`` (``tiny_stratified_problem``,
 ``pad_stratified_problem``) plus ``make_problem`` of ``bench.py`` (the hot
 step's NTL9-scale shapes). numpy only: the same seed gives the same arrays
 as the JAX package's generators. ``steady_state_early_exit`` is the plain
-early-exit form of the hot step's steady-state tail and
-``flux_order_bound`` the tolerance between two f32 fluxes summed in
-different orders (torch).
+early-exit form of the hot step's steady-state tail,
+``tail_order_excess`` the tolerance between two f32 tails that sum in
+different orders, ``tail_residual_excess`` how far the tail kernel's
+residual lies from its own ``T`` and ``p``, and ``flux_order_bound`` the
+tolerance between two f32 fluxes summed in different orders (torch).
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ __all__ = [
     "make_problem",
     "near_tie_rows",
     "steady_state_early_exit",
+    "tail_order_excess",
+    "tail_residual_excess",
     "flux_order_bound",
 ]
 
@@ -214,6 +218,77 @@ def steady_state_early_exit(fm, basis_mask, target_mask, n_iters=512, tol=1e-6,
         p, residual = _stationary(Tn, T)
         n_extra += 1
     return T, p, _target_flux(T, p, target_mask), residual, n_extra
+
+
+def tail_order_excess(got, ref):
+    """How far the f32 tail ``got`` = ``(T, p, flux, residual)`` lies beyond
+    the bound of the reference ``ref`` (the same four, from the same flux
+    matrix, summed in other orders), by output: each number is the largest
+    excess of ``|got - ref|`` over its bound, ``<= 0`` within it.
+
+    * ``T``: ``(S + 2) eps32 |T_ref|`` a cell. A row's outflux is a sum of
+      ``S`` nonnegative numbers; any order lies within ``(S - 1) eps32 / 2``
+      of the exact sum relatively, so two orders within ``(S - 1) eps32``,
+      and each IEEE division adds ``eps32 / 2``. Recycled and identity
+      rows are exact.
+    * ``p``: ``1e-4 |p_ref| + 1e-6`` a state, and the flux ``1e-4 |J_ref| +
+      1e-7``: the tolerances at which the tests hold this f32 tail to the
+      JAX package's, another implementation summing in other orders
+      (``test_torch_step.py``). After 9 to 25 squarings the distance comes
+      from the rounding of whole matrix products, which a chain near
+      decomposition amplifies; no term-by-term bound is tighter.
+    * the residual ``sum |p T - p|``: ``2 ||p - p_ref||_1 + 2 (S + 1)
+      eps32``. Moving ``p`` moves it by at most ``||dp T||_1 + ||dp||_1 <=
+      2 ||dp||_1`` (stochastic rows); its ``S`` products and sums of terms
+      adding up to at most 2 round by ``(S + 1) eps32`` each way, which also
+      covers T's relative change.
+
+    A NaN anywhere reads as NaN, which no ``<= 0`` test passes.
+    """
+    gT, gp, gf, gr = (x.double() for x in got)
+    rT, rp, rf, rr = (x.double() for x in ref)
+    S = rT.shape[0]
+    dp = (gp - rp).abs()
+    return dict(
+        T=float(((gT - rT).abs() - (S + 2) * _EPS32 * rT.abs()).max()),
+        p=float((dp - (1e-4 * rp.abs() + 1e-6)).max()),
+        flux=float((gf - rf).abs() - (1e-4 * rf.abs() + 1e-7)),
+        residual=float((gr - rr).abs() - (2 * dp.sum() + 2 * (S + 1) * _EPS32)),
+    )
+
+
+def tail_residual_excess(got, ref, tol):
+    """How far the tail kernel's residual lies from what it should read,
+    for ``got`` = the kernel's ``(T, p, flux, residual)`` and ``ref`` the
+    early-exit loop's at the same ``tol`` (``<= 0`` within):
+
+    * ``own``: ``|r - ||p T - p||_1|``, the latter in f64 from the
+      kernel's own ``T`` and ``p``, over the rounding of the kernel's sums
+      (``csrc/steady_tail.cu``, ``stationary``). Each ``(p T)_j`` of
+      nonnegative terms passes ``n1 = ceil(S / 32) + 5`` roundings (a
+      lane's fmaf chain, then a warp's five shuffles); the ``S`` terms
+      ``|(p T)_j - p_j|`` pass ``n2 = ceil(S / 256) + 13`` (the
+      subtraction, a thread's terms, five shuffles, eight warps). So
+      ``|r - r64| <= g(n1) ||p T||_1 (1 + g(n2)) + g(n2) r64`` with ``g(n)
+      = n u / (1 - n u)``, ``u = eps32 / 2``: 7.7e-7 at 252 states, a
+      hundredth of ``tail_order_excess``'s residual term.
+    * ``side``: 1 where the two residuals fall on different sides of
+      ``tol`` (the kernel's round rule then decided otherwise than the
+      loop's), else 0.
+    """
+    T, p, r = got[0].double(), got[1].double(), float(got[3])
+    S = T.shape[0]
+    u = _EPS32 / 2
+
+    def g(n):
+        return n * u / (1 - n * u)
+
+    pT = p @ T
+    r64 = float((pT - p).abs().sum())
+    n1, n2 = -(-S // 32) + 5, -(-S // 256) + 13
+    bound = g(n1) * float(pT.sum()) * (1 + g(n2)) + g(n2) * r64
+    return dict(own=abs(r - r64) - bound,
+                side=float((r <= tol) != (float(ref[3]) <= tol)))
 
 
 def flux_order_bound(pidx, cidx, w, n_states):

@@ -9,9 +9,13 @@ f32 flux adds with ``atomicAdd`` in a run-dependent order, so ``fm`` must
 lie within ``testing.flux_order_bound`` of an eager step's in each cell,
 and the graphed ``pss``, JtargetSS and residual must equal, bitwise, the
 eager tail run on the graphed ``fm``; dyadic weights (``entry()``) make the
-flux exact in any order, so there everything is bitwise. The traced graph
-of ``tracing.collect()`` gives the plain graph's outputs, counts the tail's
-rounds and times two intervals that fit in the step's device time.
+flux exact in any order, so there everything is bitwise. At these sizes
+both routes take the tail kernel (``ops/steady_tail.py``), so the graphed
+tail equals the eager one bitwise and the cuBLAS early-exit loop within
+``testing.tail_order_excess``. The traced graph of ``tracing.collect()``
+gives the plain graph's outputs, counts the tail's rounds and the replays
+whose tail took the kernel, and times two intervals that fit in the step's
+device time.
 """
 import functools
 import gc
@@ -31,11 +35,13 @@ from msm_we_tpu_torch.entry import (
     hot_step,
     stage_problem,
 )
+from msm_we_tpu_torch.ops import steady_tail as st
 from msm_we_tpu_torch.ops import stratified_assign as sa
 from msm_we_tpu_torch.testing import (
     flux_order_bound,
     make_problem,
     steady_state_early_exit,
+    tail_order_excess,
 )
 
 SMALL = dict(n_segments=8192, n_raw_features=64, n_components=8, n_bins=10,
@@ -97,9 +103,9 @@ def test_entry_replays_its_graph(cuda_device):
         assert torch.equal(g[2], flux) and torch.equal(g[3], res)
 
 
-# The wrappers each tier's step calls
-TIER_KERNELS = {"two_transform": ["transform_assign"],
-                "dedup": ["transform_assign_child", "assign_flux"]}
+# The wrappers each tier's step calls (the tail kernel at 252 states)
+TIER_KERNELS = {"two_transform": ["transform_assign", "steady_tail"],
+                "dedup": ["transform_assign_child", "assign_flux", "steady_tail"]}
 
 
 def _traced_kernels(fn, n):
@@ -194,10 +200,12 @@ def _bipartite(S=13, seed=1):
                                          (_bipartite, 16)],
                          ids=["round_0", "round_5", "never"])
 def test_graphed_tail_equals_the_early_exit_loop(cuda_device, make, rounds):
-    """The tail's rounds as conditional nodes of a graph: the early-exit
-    loop's result, bitwise, on the same device tensors. ``round_5`` may take
-    a round more or less on the card, whose sums round otherwise; ``never``
-    takes every conditional body."""
+    """The graphed tail (the tail kernel's node at these sizes): the eager
+    route's result bitwise (the same kernel, fixed sums), and the early-exit
+    loop's within ``testing.tail_order_excess`` (cuBLAS sums in other
+    orders), on the same device tensors. ``round_5`` may take a round more
+    or less on the card, whose sums round otherwise; ``never`` takes every
+    round."""
     fm = torch.tensor(make(), device=cuda_device)
     ids = torch.arange(fm.shape[0], device=cuda_device)
     basis, target = ids == fm.shape[0] - 2, ids == fm.shape[0] - 1
@@ -206,11 +214,14 @@ def test_graphed_tail_equals_the_early_exit_loop(cuda_device, make, rounds):
         assert n_extra == rounds
     else:
         assert 0 < n_extra < 16
+    eager = tstep.steady_state_from_flux(fm, basis, target)
     for _ in range(2):
         got = _graph.run(tstep.steady_state_from_flux,
                          _graph.steady_state_conditional, fm, basis, target)
-        for g, r in zip(got, ref):
-            assert torch.equal(g, r)
+        for g, e in zip(got, eager):
+            assert torch.equal(g, e)
+        excess = tail_order_excess(got, ref)
+        assert all(v <= 0 for v in excess.values()), excess
 
 
 # ------------------------------------------------------- the traced graph
@@ -252,11 +263,15 @@ def test_the_traced_graph_gives_the_plain_graphs_outputs(cuda_device, problems):
 
 @pytest.mark.cuda
 def test_tail_rounds_count_each_replays_early_exit_rounds(cuda_device, problem0):
+    """The traced graph's counters: the rounds are the tail kernel's own,
+    as it counts them eagerly on each replay's flux, and every replay's
+    tail took the kernel."""
     s = stage_problem(problem0, "two_transform", cuda_device)
     outs, col = _traced_runs(lambda: hot_step(s, "two_transform"), 8)
     basis, target = _state_masks(s["n_states"], cuda_device)
-    want = sum(steady_state_early_exit(o["fm"], basis, target)[-1] for o in outs)
+    want = sum(int(st.steady_tail(o["fm"], basis, target)[4]) for o in outs)
     assert col.counts["tail_rounds"] == want
+    assert col.counts["tail_fused"] == 8
 
 
 @pytest.mark.cuda

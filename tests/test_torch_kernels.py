@@ -431,4 +431,5 @@ def test_cuda_kernels_match_plain(problem, cuda_device):
     got = sa.pair_assign(t["fp"], t["fc"], t["pbins"], t["cbins"], *bank)
     ref = sa.pair_assign_plain(t["fp"], t["fc"], t["pbins"], t["cbins"], *bank)
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
-    assert all(v == 1 for v in sa.launch_counts().values())
+    assert sa.launch_counts() == dict(dict.fromkeys(sa.KERNELS, 1),
+                                      steady_tail=0)
