@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``msm_we_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases device,build,kernels,main,analysis,access,routes,mesh,plugins,configs] [--out DIR]
+    python3 chip_smoke.py [--phases device,build,kernels,main,analysis,access,routes,mesh,plugins,configs,tail] [--out DIR]
 
 Phases, each printing one JSON line:
 
@@ -162,6 +162,13 @@ Phases, each printing one JSON line:
    through a plain pickle round trip assign 100,000 extended pcoords on the
    card, bitwise the live mapper's; ``compute_new_pcoord_map`` on 1,000
    structures.
+11. ``tail``: the steady-state tail above ``ops.steady_tail.S_MAX``, on the
+   flux matrix of the ``ntl9_100k.bins128`` cell's step (``make_problem``
+   seed 0, 128 bins x 25: 3,202 states), which an f32 matrix takes in
+   float64 (``ops.steady_tail.tail_dtype``): one ``steady_state_rounds``
+   line, as the ``main`` phase's for the tail kernel, with the float64
+   route's forms, its device ms and bound, and the parent's f32 tail
+   beside it (``_tail_rounds``).
 
 The line before the last is the ``{"kernels": [...]}`` summary and the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -179,7 +186,7 @@ import time
 from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "main", "analysis", "access", "routes",
-          "mesh", "plugins", "configs")
+          "mesh", "plugins", "configs", "tail")
 
 KERNEL_INFO = {
     "transform_assign_child": dict(
@@ -199,7 +206,7 @@ KERNEL_INFO = {
         pallas="H4", replaces="msm_we_tpu/ops/pallas_kernels.py:203",
         source="msm_we_tpu_torch/csrc/pair_assign.cu"),
     # The steady-state tail: no Pallas call, XLA's while_loop in the JAX
-    # package; timed by the main phase's steady_state_rounds lines
+    # package; timed by the main and tail phases' steady_state_rounds lines
     "steady_tail": dict(
         pallas="none", replaces="msm_we_tpu/parallel/sharded.py:538",
         source="msm_we_tpu_torch/csrc/steady_tail.cu"),
@@ -208,6 +215,8 @@ KERNEL_INFO = {
 # f32 FLOP/s outside the tensor cores (every assignment stays exact f32)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+# and f64 FLOP/s of the tensor cores (the steady-state tail above S_MAX)
+F64_FLOPS = 67e12
 
 
 def emit(obj):
@@ -839,7 +848,8 @@ def _tail_rounds(fm, reps):
     matrix in and T out over 3.35 TB/s) and the plain version's ms (the
     PyTorch tail with ``torch.where`` rounds, eagerly). Replay ms (CUDA events), the trace's device
     ms and operations (lower bounds); the extra squarings the loop and the
-    kernel took at each ``tol``."""
+    kernel took at each ``tol``. Above ``S_MAX`` the forms are the
+    float64 route's (:func:`_tail_rounds_f64`)."""
     import torch
 
     from msm_we_tpu_torch import _graph, step
@@ -851,6 +861,8 @@ def _tail_rounds(fm, reps):
     )
 
     S = fm.shape[0]
+    if not st.uses_kernel(fm.device, fm.dtype, S):
+        return _tail_rounds_f64(fm, reps)
     ids = torch.arange(S, device=fm.device)
     basis, target = ids == S - 2, ids == S - 1
     ref = {tol: steady_state_early_exit(fm, basis, target, tol=tol)
@@ -912,6 +924,148 @@ def _tail_rounds(fm, reps):
                     f"{line['p_diff']})")
         res[form] = line
     return res
+
+
+def _f32_tail(fm, basis, target, tol, rounds):
+    """The parent's PyTorch tail of an f32 ``fm`` above ``S_MAX``: the
+    float64 route's steps in f32, its fixed squarings on rows of ``S``
+    floats as the parent laid them out, its extra squarings taken by
+    ``rounds`` (``step._where_rounds`` or ``_graph.conditional_rounds``)."""
+    from msm_we_tpu_torch import step
+    from msm_we_tpu_torch._device import f64_threshold
+
+    T = step._transition_matrix(fm, basis, target)
+    Tn = T
+    for _ in range(step._fixed_squarings(512)):
+        Tn = Tn @ Tn
+        Tn = Tn / Tn.sum(1, keepdim=True).clamp(min=1e-30)
+    p, residual = step._stationary(Tn, T)
+    Tn, p, residual = rounds(Tn, p, residual, T, f64_threshold(tol, fm.dtype), 16)
+    return T, p, step._target_flux(T, p, target), residual
+
+
+def _tail_rounds_f64(fm, reps):
+    """The steady-state tail of an f32 ``fm`` of more than ``S_MAX`` states,
+    which takes it in float64 (``ops.steady_tail.tail_dtype``), each form
+    captured into a CUDA graph of its own: 16 rounds guarded by
+    ``torch.where`` (``where``), the rounds as conditional nodes
+    (``conditional``), and those at ``tol = 0`` where all 16 bodies run
+    (``conditional_taken``). Each must lie within its f32 rounding and
+    1e-12 of the float64 early-exit loop at the same ``tol`` (``bitwise``:
+    whether it equals that loop's outputs cast to f32). The
+    ``conditional`` form's line adds the tail's device ms by the event
+    nodes of its traced graph (``tracing.collect()``: what
+    ``step.tail_device_ms`` reads) and their rounds, its bound (float64
+    operations of the squarings taken over 67 TFLOP/s, or each squaring's
+    operand and product over 3.35 TB/s), and the parent's f32 tail beside
+    it: eagerly (``plain_ms``: 16 ``torch.where`` rounds) and as a graph of
+    conditional nodes (``f32_graph_ms``), with the extra squarings of the
+    f32 early-exit loop."""
+    import functools
+
+    import torch
+
+    from msm_we_tpu_torch import _graph, step, tracing
+    from msm_we_tpu_torch.ops import steady_tail as st
+    from msm_we_tpu_torch.testing import (
+        f32_rounding_excess,
+        steady_state_early_exit,
+    )
+
+    S = fm.shape[0]
+    require(st.tail_dtype(fm.dtype, S) == torch.float64,
+            f"tail at S = {S}: an f32 flux matrix above S_MAX must take the "
+            f"float64 route")
+    ids = torch.arange(S, device=fm.device)
+    basis, target = ids == S - 2, ids == S - 1
+    ref = {tol: steady_state_early_exit(fm.double(), basis, target, tol=tol)
+           for tol in (1e-6, 0.0)}
+    f32_rounds = steady_state_early_exit(fm, basis, target)[4]
+    res = dict(n_states=S, route="float64", extra_squarings=ref[1e-6][4],
+               extra_squarings_tol_0=ref[0.0][4],
+               f32_extra_squarings=f32_rounds)
+    require(ref[0.0][4] == 16, f"the float64 early-exit loop took "
+                               f"{ref[0.0][4]} extra squarings at tol = 0")
+
+    def route(rounds, tol):
+        return lambda: step._steady_state(fm, basis, target, 512, tol, 16, rounds)
+
+    forms = {"where": (route(step._where_rounds, 1e-6),) * 2 + (1e-6,),
+             "conditional": (route(step._where_rounds, 1e-6),
+                             route(_graph.conditional_rounds, 1e-6), 1e-6),
+             "conditional_taken": (route(step._where_rounds, 0.0),
+                                   route(_graph.conditional_rounds, 0.0), 0.0)}
+    for form, (eager, graphed, tol) in forms.items():
+        cap = _graph.capture(eager, graphed, (), fm.device)
+        got = cap.replay()
+        r = ref[tol]
+        dev_ms, ops, _k = _step_profile(cap.replay, reps)
+        line = dict(ms=cuda_ms(cap.replay, reps), device_ms_lower_bound=dev_ms,
+                    device_ops_lower_bound=ops,
+                    p_diff=float((got[1].double() - r[1]).abs().max()),
+                    bitwise=all(torch.equal(g, x.float()) for g, x in zip(got, r[:4])),
+                    rounding_excess=f32_rounding_excess(got, r[:4]))
+        require(all(g.dtype == torch.float32 for g in got)
+                and line["rounding_excess"] <= 1e-12,
+                f"tail [{form}] at S = {S}: the float64 route lies "
+                f"{line['rounding_excess']} beyond its f32 rounding of the "
+                f"float64 early-exit loop")
+        res[form] = line
+    traced = _graph.capture(
+        functools.partial(step.steady_state_from_flux, fm, basis, target),
+        functools.partial(_graph.steady_state_conditional, fm, basis, target),
+        (), fm.device, traced=True)
+    col = tracing.Collector()
+    for _ in range(reps):
+        col.using(traced)
+        traced.launch()
+    col.close()
+    tail_ms = sorted(col.device_ms["tail"])
+    n = step._fixed_squarings(512) + res["extra_squarings"]
+    t_ops = n * 2.0 * S ** 3 / F64_FLOPS
+    t_bytes = n * 2 * 8.0 * S * S / HBM_BYTES_PER_S
+    f32_where = functools.partial(_f32_tail, fm, basis, target, 1e-6,
+                                  step._where_rounds)
+    f32_graph = _graph.capture(
+        f32_where, functools.partial(_f32_tail, fm, basis, target, 1e-6,
+                                     _graph.conditional_rounds), (), fm.device)
+    res["conditional"].update(
+        tail_device_ms=tail_ms[len(tail_ms) // 2],
+        traced_rounds=col.counts["tail_rounds"] / reps,
+        traced_f64=col.counts.get("tail_f64", 0) / reps,
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops > t_bytes else "bytes",
+        plain_ms=cuda_ms(f32_where, reps),
+        f32_graph_ms=cuda_ms(f32_graph.replay, reps))
+    require(res["conditional"]["traced_rounds"] == res["extra_squarings"]
+            and res["conditional"]["traced_f64"] == 1,
+            f"tail at S = {S}: the traced graph counted "
+            f"{res['conditional']['traced_rounds']} rounds a replay (the "
+            f"float64 loop {res['extra_squarings']}) and "
+            f"{res['conditional']['traced_f64']} float64 replays a replay")
+    return res
+
+
+def phase_tail(args, summary):
+    """The steady-state tail above ``S_MAX``: the float64 route on the
+    ``ntl9_100k.bins128`` cell's flux matrix (3,202 states)."""
+    import torch
+
+    from msm_we_tpu_torch.entry import hot_step, stage_problem
+    from msm_we_tpu_torch.testing import make_problem
+
+    s = stage_problem(make_problem(seed=0, n_bins=128), "two_transform", "cuda")
+    fm = hot_step(s, "two_transform")["fm"]
+    del s
+    torch.cuda.empty_cache()
+    line = _tail_rounds(fm, args.reps)
+    emit(dict(phase="steady_state_rounds", tier="bins128", **line))
+    summary["tail_bins128"] = dict(
+        ms=line["conditional"]["ms"],
+        tail_device_ms=line["conditional"]["tail_device_ms"],
+        bound_ms=line["conditional"]["bound_ms"],
+        plain_ms=line["conditional"]["plain_ms"],
+        f32_graph_ms=line["conditional"]["f32_graph_ms"])
 
 
 def _early_exit_tail(fm, basis_mask, target_mask):
@@ -3472,6 +3626,8 @@ def main(argv=None):
         phase_plugins(args, summary, smi)
     if "configs" in phases:
         phase_configs(args, summary)
+    if "tail" in phases:
+        phase_tail(args, summary)
 
     launches = summary.get("launches", {})
     launches_analysis = summary.get("launches_analysis", {})

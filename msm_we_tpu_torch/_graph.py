@@ -11,7 +11,7 @@ with the same key only replay. ``graphed`` is ``eager`` with
 :func:`steady_state_conditional` as its steady-state tail: the same kernels
 at the same shapes (one kernel for the tail of a CUDA f32 flux matrix of at
 most ``ops.steady_tail.S_MAX`` states, else the tail's extra squarings as
-conditional nodes).
+conditional nodes, in float64 for a larger f32 matrix).
 
 * The key is ``graphed`` itself plus every leaf of ``args``: a tensor by
   ``(data_ptr, shape, stride, dtype, device)``, anything else by value. A
@@ -42,9 +42,11 @@ the tail's extra rounds (the tail kernel adds the rounds it took; on the
 PyTorch route each conditional round adds one). The block's collector reads
 each replay's two intervals, ``device_ms["assign_flux"]`` and
 ``device_ms["tail"]``, before the next traced replay overwrites them, and
-counts the replays whose tail took the kernel, ``counts["tail_fused"]``;
-it reads the counter, ``counts["tail_rounds"]``, once when the block
-closes.
+counts the replays whose tail took the kernel, ``counts["tail_fused"]``,
+and those whose tail took the float64 route (an f32 flux matrix of more
+than ``S_MAX`` states, ``ops.steady_tail.tail_dtype``),
+``counts["tail_f64"]``; it reads the counter, ``counts["tail_rounds"]``,
+once when the block closes.
 With neither on, a run opens no span: it reads one count and the
 profiler's flag in :func:`run` and again in ``GraphCache.run``.
 
@@ -97,11 +99,12 @@ class _Captured:
     """A captured graph and its static outputs (``bodies``: the graphs of
     its conditional nodes, kept with it). A traced graph also holds its
     three timing events (``marks``: start, tail, end), its round counter
-    (``rounds``) and whether its tail is the tail kernel (``fused``), and is
-    a traced source of ``tracing.Collector``."""
+    (``rounds``), whether its tail is the tail kernel (``fused``) and
+    whether it runs in float64 for an f32 flux matrix (``f64``), and is a
+    traced source of ``tracing.Collector``."""
 
     def __init__(self, graph, device, outputs, spec, bodies, marks=None,
-                 rounds=None, fused=False):
+                 rounds=None, fused=False, f64=False):
         self.graph = graph
         self.device = device
         self.outputs = outputs
@@ -110,6 +113,7 @@ class _Captured:
         self.marks = marks
         self.rounds = rounds
         self.fused = fused
+        self.f64 = f64
 
     def launch(self):
         with torch.cuda.device(self.device):
@@ -134,6 +138,7 @@ class _Captured:
         col.device_ms.setdefault("assign_flux", []).append(start.elapsed_time(tail))
         col.device_ms.setdefault("tail", []).append(tail.elapsed_time(end))
         col.counts["tail_fused"] = col.counts.get("tail_fused", 0) + int(self.fused)
+        col.counts["tail_f64"] = col.counts.get("tail_f64", 0) + int(self.f64)
 
     def close(self, col):
         col.counts["tail_rounds"] = col.counts.get("tail_rounds", 0) + int(self.rounds)
@@ -142,7 +147,8 @@ class _Captured:
 class _Capture:
     """What :func:`conditional` and the tail need of the capture under way
     (``marks`` and ``rounds``: a traced capture's events and counter;
-    ``fused``: set where the tail took the tail kernel)."""
+    ``fused``: set where the tail took the tail kernel; ``f64``: where it
+    took the float64 route)."""
 
     def __init__(self, stream, marks=None, rounds=None):
         self.stream = stream
@@ -151,6 +157,7 @@ class _Capture:
         self.marks = marks
         self.rounds = rounds
         self.fused = False
+        self.f64 = False
 
 
 def _check_precision():
@@ -213,9 +220,10 @@ def steady_state_conditional(fm, basis_mask, target_mask, n_iters=512,
     tail kernel where ``ops.steady_tail.uses_kernel`` takes it (one kernel
     node, its loop inside; a traced capture hands it the round counter),
     else the extra squarings as conditional nodes
-    (:func:`conditional_rounds`): the same result as the eager route, and
-    a round after convergence costs no squaring. A traced capture records
-    its tail event here, right before the tail's first launch."""
+    (:func:`conditional_rounds`), in ``ops.steady_tail.tail_dtype``: the
+    same result as the eager route, and a round after convergence costs no
+    squaring. A traced capture records its tail event here, right before
+    the tail's first launch."""
     cap = getattr(_local, "capture", None)
     if cap is not None and cap.marks is not None:
         cap.marks[1].record(cap.stream)
@@ -225,6 +233,8 @@ def steady_state_conditional(fm, basis_mask, target_mask, n_iters=512,
         return steady_tail.steady_tail(
             fm, basis_mask, target_mask, n_iters, tol, max_extra_squarings,
             counter=None if cap is None else cap.rounds)[:4]
+    if cap is not None:
+        cap.f64 = steady_tail.tail_dtype(fm.dtype, fm.shape[0]) != fm.dtype
     return step._steady_state(fm, basis_mask, target_mask, n_iters, tol,
                               max_extra_squarings, conditional_rounds)
 
@@ -260,7 +270,7 @@ def capture(eager, graphed, args, device, traced=False):
             _local.capture = None
     outputs, spec = pytree.tree_flatten(out)
     return _Captured(graph, device, outputs, spec, cap.bodies, marks, rounds,
-                     cap.fused)
+                     cap.fused, cap.f64)
 
 
 class GraphCache:

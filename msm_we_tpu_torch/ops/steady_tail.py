@@ -13,14 +13,23 @@ match the PyTorch tail to f32 reordering (cuBLAS and torch's reductions add
 in other orders, and the kernel renormalises by a row's reciprocal), not
 bitwise.
 
-The route (:func:`uses_kernel`) follows what the input shows: a CUDA f32
-flux matrix of at most ``S_MAX`` states takes the kernel
-(``step.steady_state_from_flux`` eagerly, ``_graph.steady_state_conditional``
-inside a capture). Larger matrices, where the squarings are real matrix
+The route follows what the input shows, by two rules that
+``step.steady_state_from_flux`` (eagerly) and
+``_graph.steady_state_conditional`` (inside a capture) both ask.
+:func:`uses_kernel`: a CUDA f32 flux matrix of at most ``S_MAX`` states
+takes the kernel. Larger matrices, where the squarings are real matrix
 products, keep the PyTorch tail (``torch.where`` rounds eagerly, conditional
 nodes in a graph), and so do other dtypes and CPU tensors: that PyTorch
 tail (``step._steady_state`` with ``step._where_rounds``) is the kernel's
 plain version, and ``testing.steady_state_early_exit`` counts its rounds.
+:func:`tail_dtype`: the PyTorch tail of an f32 flux matrix of more than
+``S_MAX`` states runs in float64, on the CPU and on CUDA alike, and returns
+its outputs in f32. There the f32 residual ``||p T - p||_1`` sits at its
+rounding floor (about ``sqrt(S)`` f32 epsilons, 3.4e-6 at 3,202 states,
+above ``tol`` = 1e-6), so the f32 test would take its extra squarings by
+the order of its sums and not by the chain; in float64 it means what the
+float64 reference means by it. A difference by design from the JAX
+package's f32 ``while_loop``: a higher precision, never a lower one.
 The wrapper's launches are counted with the other kernels'
 (``stratified_assign.KERNELS``).
 """
@@ -31,11 +40,11 @@ import torch
 from .._device import f64_threshold
 from ._ext import check, library
 
-__all__ = ["S_MAX", "MAX_STATES", "steady_tail", "uses_kernel"]
+__all__ = ["S_MAX", "MAX_STATES", "steady_tail", "tail_dtype", "uses_kernel"]
 
 # The largest S that takes the kernel: the crossover with the PyTorch tail
 # in a CUDA graph on an H100 (PERF.md, section 6: 640 wins at 0 and 16
-# extra rounds, 768 loses at 16)
+# extra rounds, 768 loses at 16); above it an f32 tail runs in float64
 S_MAX = 640
 # The kernel's own limit: two vectors of S floats in shared memory
 # (kMaxStates in csrc/steady_tail.cu)
@@ -49,6 +58,15 @@ def uses_kernel(device, dtype, n_states):
     ``device`` takes the kernel: CUDA, float32 and ``n_states <= S_MAX``."""
     return (torch.device(device).type == "cuda" and dtype == torch.float32
             and n_states <= S_MAX)
+
+
+def tail_dtype(dtype, n_states):
+    """The dtype in which the PyTorch tail of a flux matrix of ``n_states``
+    states of ``dtype`` runs: float64 for float32 above ``S_MAX`` states,
+    else ``dtype``. It does not depend on the device."""
+    if dtype == torch.float32 and n_states > S_MAX:
+        return torch.float64
+    return dtype
 
 
 def _scratch_floats(S):

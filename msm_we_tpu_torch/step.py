@@ -186,10 +186,34 @@ def _transition_matrix(fm, basis_mask, target_mask):
     return torch.where(target_mask[:, None], recycle[None, :], T)
 
 
+# Rows of the tail's squared matrices start on this many bytes: cuBLAS's
+# product of two (3,202, 3,202) f64 matrices takes 1.21-1.37 ms with such
+# rows and 1.72 ms with rows of 3,202 (16-byte steps) on an H100 (PERF.md,
+# section 6)
+ROW_ALIGN = 32
+
+
+def _aligned_empty(S, like):
+    """An uninitialised (S, S) matrix of ``like``'s dtype and device whose
+    rows start every ``ROW_ALIGN`` bytes: the first ``S`` columns of a
+    buffer whose rows are padded to that step."""
+    step = ROW_ALIGN // like.element_size()
+    ld = -(-S // step) * step
+    return torch.empty((S, ld), dtype=like.dtype, device=like.device)[:, :S]
+
+
+def _aligned(T):
+    """``T`` (S, S) with its rows on ``ROW_ALIGN`` bytes: itself where they
+    are, else a copy (the same values)."""
+    if T.is_contiguous() and T.shape[1] * T.element_size() % ROW_ALIGN == 0:
+        return T
+    return _aligned_empty(T.shape[0], T).copy_(T)
+
+
 def _square(Tn):
-    Tn = Tn @ Tn
+    out = torch.mm(Tn, Tn, out=_aligned_empty(Tn.shape[0], Tn))
     # Renormalize rows: f32 powering drifts row sums off 1
-    return Tn / Tn.sum(1, keepdim=True).clamp(min=1e-30)
+    return out.div_(out.sum(1, keepdim=True).clamp(min=1e-30))
 
 
 def _stationary(Tn, T):
@@ -229,22 +253,26 @@ def _steady_state(fm, basis_mask, target_mask, n_iters, tol,
                   max_extra_squarings, rounds):
     """The tail with its extra squarings taken by ``rounds`` (the signature
     of :func:`_where_rounds`; ``_graph.conditional_rounds`` inside a
-    capture). ``tol`` becomes the largest number of ``fm``'s dtype not
-    above it, so the device comparison decides as a host read would."""
-    tol = f64_threshold(tol, fm.dtype)
-    T = _transition_matrix(fm, basis_mask, target_mask)
+    capture), in ``ops.steady_tail.tail_dtype``: float64 for an f32 ``fm``
+    of more than ``S_MAX`` states, else ``fm``'s dtype. ``tol`` becomes the
+    largest number of that dtype not above it, so the device comparison
+    decides as a host read would. The outputs are in ``fm``'s dtype."""
+    dtype = steady_tail.tail_dtype(fm.dtype, fm.shape[0])
+    tol = f64_threshold(tol, dtype)
+    T = _aligned(_transition_matrix(fm.to(dtype), basis_mask, target_mask))
     Tn = T
     for _ in range(_fixed_squarings(n_iters)):
         Tn = _square(Tn)
     p, residual = _stationary(Tn, T)
     Tn, p, residual = rounds(Tn, p, residual, T, tol, max_extra_squarings)
-    return T, p, _target_flux(T, p, target_mask), residual
+    out = T, p, _target_flux(T, p, target_mask), residual
+    return tuple(x.to(fm.dtype) for x in out)
 
 
 def steady_state_from_flux(fm, basis_mask, target_mask, n_iters=512,
                            tol=1e-6, max_extra_squarings=16):
-    """Device tail in the dtype of ``fm``: row-normalize with sink
-    recycling, then ``p0 T^n`` by repeated squaring.
+    """Device tail, its outputs in the dtype of ``fm``: row-normalize with
+    sink recycling, then ``p0 T^n`` by repeated squaring.
 
     ``ceil(log2(n_iters))`` squarings, then at most ``max_extra_squarings``
     rounds, each taken only while the residual ``||p T - p||_1`` exceeds
@@ -256,8 +284,10 @@ def steady_state_from_flux(fm, basis_mask, target_mask, n_iters=512,
     included. Otherwise every round computes its candidate and keeps it
     only while the 0-dim flag ``residual > tol`` holds, and a CUDA graph of
     a step takes the rounds as conditional nodes instead
-    (``_graph.steady_state_conditional``). Returns ``(T, p, flux,
-    residual)``.
+    (``_graph.steady_state_conditional``); an f32 ``fm`` of more than
+    ``S_MAX`` states takes that tail in float64, on the CPU and on CUDA
+    (``ops.steady_tail.tail_dtype``), where its f32 residual would sit at
+    its rounding floor. Returns ``(T, p, flux, residual)``.
     """
     if steady_tail.uses_kernel(fm.device, fm.dtype, fm.shape[0]):
         return steady_tail.steady_tail(fm, basis_mask, target_mask, n_iters,

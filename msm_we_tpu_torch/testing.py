@@ -8,8 +8,10 @@ as the JAX package's generators. ``steady_state_early_exit`` is the plain
 early-exit form of the hot step's steady-state tail,
 ``tail_order_excess`` the tolerance between two f32 tails that sum in
 different orders, ``tail_residual_excess`` how far the tail kernel's
-residual lies from its own ``T`` and ``p``, and ``flux_order_bound`` the
-tolerance between two f32 fluxes summed in different orders (torch).
+residual lies from its own ``T`` and ``p``, ``f32_rounding_excess`` how
+far the float64 tail's f32 outputs lie from the float64 loop's, and
+``flux_order_bound`` the tolerance between two f32 fluxes summed in
+different orders (torch).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ __all__ = [
     "steady_state_early_exit",
     "tail_order_excess",
     "tail_residual_excess",
+    "f32_rounding_excess",
     "flux_order_bound",
 ]
 
@@ -197,9 +200,12 @@ def steady_state_early_exit(fm, basis_mask, target_mask, n_iters=512, tol=1e-6,
                             max_extra_squarings=16):
     """``step.steady_state_from_flux`` as a loop that reads the residual on
     the host before each extra squaring and stops at the first one within
-    ``tol``: the plain reference of its device-side check. Returns ``(T, p,
-    flux, residual, n_extra)``, ``n_extra`` the extra squarings taken."""
+    ``tol``: the plain reference of its device-side check, in ``fm``'s
+    dtype (on ``fm.double()`` the reference of the float64 route of an f32
+    ``fm`` above ``ops.steady_tail.S_MAX`` states). Returns ``(T, p, flux,
+    residual, n_extra)``, ``n_extra`` the extra squarings taken."""
     from .step import (
+        _aligned,
         _fixed_squarings,
         _square,
         _stationary,
@@ -207,7 +213,7 @@ def steady_state_early_exit(fm, basis_mask, target_mask, n_iters=512, tol=1e-6,
         _transition_matrix,
     )
 
-    T = _transition_matrix(fm, basis_mask, target_mask)
+    T = _aligned(_transition_matrix(fm, basis_mask, target_mask))
     Tn = T
     for _ in range(_fixed_squarings(n_iters)):
         Tn = _square(Tn)
@@ -289,6 +295,18 @@ def tail_residual_excess(got, ref, tol):
     bound = g(n1) * float(pT.sum()) * (1 + g(n2)) + g(n2) * r64
     return dict(own=abs(r - r64) - bound,
                 side=float((r <= tol) != (float(ref[3]) <= tol)))
+
+
+def f32_rounding_excess(got, ref):
+    """How far the f32 outputs ``got`` lie beyond their own rounding of the
+    float64 numbers ``ref``: the largest ``|got - ref| - 2^-24 |ref|`` over
+    every number of every pair (an f32 rounds to within half an epsilon,
+    relatively). The float64 tail's outputs, which are the float64 loop's
+    cast to f32, read at most 1e-12 (how far two float64 sums in other
+    orders may move them)."""
+    return max(float(((g.double() - r.double()).abs()
+                      - 2.0 ** -24 * r.double().abs()).max())
+               for g, r in zip(got, ref))
 
 
 def flux_order_bound(pidx, cidx, w, n_states):

@@ -5,7 +5,11 @@ against the early-exit loops that read the residual on the host (bitwise)
 and against the JAX package (the tolerances of
 ``test_torch_step.py::test_steady_state_from_flux_matches_jax`` and of
 ``test_torch_analysis.py::test_committor_device_matches_jax``); neither
-reads the device inside its rounds. Also the key and cache logic of
+reads the device inside its rounds. An f32 flux matrix of more than
+``ops.steady_tail.S_MAX`` states takes the tail in float64 (a difference
+by design from JAX's f32 loop): it is held to the early-exit loop and to
+JAX's loop on the same matrix in float64, its outputs within their own f32
+rounding (and 1e-12) of those. Also the key and cache logic of
 ``_graph.py`` on CPU tensors, without a capture.
 """
 import gc
@@ -21,8 +25,13 @@ from msm_we_tpu_torch import _graph
 from msm_we_tpu_torch import step as tstep
 from msm_we_tpu_torch.entry import TIERS, hot_step
 from msm_we_tpu_torch.ops import linalg as tlinalg
+from msm_we_tpu_torch.ops import steady_tail as st
 from msm_we_tpu_torch.ops import stratified_assign as sa
-from msm_we_tpu_torch.testing import make_problem, steady_state_early_exit
+from msm_we_tpu_torch.testing import (
+    f32_rounding_excess,
+    make_problem,
+    steady_state_early_exit,
+)
 
 from _torch_parity import np_, tt
 
@@ -53,6 +62,19 @@ def _bipartite(S=13, seed=1):
             ).astype(np.float32)
 
 
+def _lopsided(eps, S=642, ratio=10.0, seed=0):
+    """Two halves of the states joined by flux ``eps`` times the rest one
+    way and ``ratio * eps`` the other, so the stationary vector lies far
+    from the uniform start: the smaller ``eps``, the more extra squarings
+    the float64 tail takes."""
+    rng = np.random.default_rng(seed)
+    fm = rng.random((S, S))
+    half = np.arange(S) < S // 2
+    fm[half[:, None] & ~half[None, :]] *= eps
+    fm[~half[:, None] & half[None, :]] *= eps * ratio
+    return fm.astype(np.float32)
+
+
 @pytest.fixture(scope="module")
 def hot_fluxes():
     """The (252, 252) f32 flux of each tier of a small ``make_problem``
@@ -68,6 +90,24 @@ CASES = {
     "round_5": (lambda: _coupled(1.5e-4), 5),
     "never": (_bipartite, 16),
 }
+
+
+# Above S_MAX, where an f32 flux matrix takes the float64 tail: name ->
+# (flux matrix, extra squarings of the float64 loop, of the f32 loop). The
+# f32 residual sits at its rounding floor (about 2e-6 at 642 states), so
+# the f32 loop takes all 16 rounds whatever the chain.
+WIDE_CASES = {
+    "wide_round_0": (lambda: _coupled(0.1, S=642), 0, 16),
+    "wide_round_5": (lambda: _lopsided(5e-5), 5, 16),
+    "wide_never": (lambda: _bipartite(S=643), 16, 16),
+}
+
+
+def assert_within_f32_rounding(got, ref):
+    """Each of the f32 outputs ``got`` lies within its own f32 rounding and
+    1e-12 of the float64 ``ref`` (``testing.f32_rounding_excess``)."""
+    assert all(g.dtype == torch.float32 for g in got)
+    assert f32_rounding_excess(got, ref) <= 1e-12
 
 
 def _case(name, hot_fluxes):
@@ -107,6 +147,42 @@ def test_steady_state_matches_jax(name, hot_fluxes):
     np.testing.assert_allclose(np_(p), jp, rtol=1e-4, atol=1e-6)
     assert float(flux) == pytest.approx(float(jflux), rel=1e-4, abs=1e-7)
     assert (float(res) <= 1e-6) == (float(jres) <= 1e-6)
+
+
+@pytest.mark.parametrize("name", list(WIDE_CASES))
+def test_the_f64_route_equals_the_float64_loop(name):
+    """Above ``S_MAX`` an f32 flux matrix's tail is the early-exit loop run
+    on it in float64, its outputs cast to f32: the float64 loop's rounds,
+    where the f32 loop's follow its rounding floor."""
+    make, rounds64, rounds32 = WIDE_CASES[name]
+    fm = torch.tensor(make())
+    assert fm.shape[0] > st.S_MAX
+    basis, target = _masks(fm.shape[0])
+    got = tstep.steady_state_from_flux(fm, basis, target)
+    *ref, n_extra = steady_state_early_exit(fm.double(), basis, target)
+    assert n_extra == rounds64
+    assert steady_state_early_exit(fm, basis, target)[-1] == rounds32
+    assert_within_f32_rounding(got, ref)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r.float())
+
+
+@pytest.mark.parametrize("name", list(WIDE_CASES))
+def test_the_f64_route_matches_jax_in_float64(name):
+    """JAX's ``while_loop`` on the same matrix in float64: the f64 route's
+    outputs lie within their f32 rounding and 1e-12 of it, and its residual
+    on the same side of ``tol``."""
+    from msm_we_tpu.utils import _scoped_x64
+
+    fm = WIDE_CASES[name][0]()
+    basis, target = (np_(m) for m in _masks(fm.shape[0]))
+    with _scoped_x64():
+        ref = [torch.tensor(np.asarray(o)) for o in jsh.steady_state_from_flux(
+            fm.astype(np.float64), basis, target)]
+    assert all(r.dtype == torch.float64 for r in ref)
+    got = tstep.steady_state_from_flux(tt(fm), tt(basis), tt(target))
+    assert_within_f32_rounding(got[:3], ref[:3])
+    assert (float(got[3]) <= 1e-6) == (float(ref[3]) <= 1e-6)
 
 
 def _refuse_host_reads(monkeypatch, allow_bool=None):
@@ -384,6 +460,42 @@ def test_conditional_rounds_take_the_early_exit_loops_rounds(name,
     assert len(taken) == 16 and sum(taken) == n_extra == CASES[name][1]
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("name", list(WIDE_CASES))
+def test_conditional_rounds_take_the_float64_loops_rounds(name, monkeypatch):
+    """The graph form of the float64 route, each conditional node run as the
+    graph runs it: the float64 loop's rounds, and its outputs cast to f32."""
+    from contextlib import contextmanager
+
+    taken, state = [], []
+
+    @contextmanager
+    def run_where(flag):
+        go = bool(flag)
+        taken.append(go)
+        saved = [t.clone() for t in state] if not go else None
+        yield
+        if saved is not None:
+            for t, v in zip(state, saved):
+                t.copy_(v)
+
+    real_rounds = _graph.conditional_rounds
+
+    def rounds(Tn, p, residual, T, tol, n_rounds):
+        assert Tn.dtype == p.dtype == residual.dtype == torch.float64
+        state[:] = [Tn, p, residual]
+        return real_rounds(Tn, p, residual, T, tol, n_rounds)
+
+    monkeypatch.setattr(_graph, "conditional", run_where)
+    make, rounds64, _rounds32 = WIDE_CASES[name]
+    fm = torch.tensor(make())
+    basis, target = _masks(fm.shape[0])
+    got = tstep._steady_state(fm, basis, target, 512, 1e-6, 16, rounds)
+    *ref, n_extra = steady_state_early_exit(fm.double(), basis, target)
+    assert len(taken) == 16 and sum(taken) == n_extra == rounds64
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r.float())
 
 
 def test_flux_order_bound_covers_another_summation_order():

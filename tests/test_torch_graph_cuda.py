@@ -9,13 +9,18 @@ f32 flux adds with ``atomicAdd`` in a run-dependent order, so ``fm`` must
 lie within ``testing.flux_order_bound`` of an eager step's in each cell,
 and the graphed ``pss``, JtargetSS and residual must equal, bitwise, the
 eager tail run on the graphed ``fm``; dyadic weights (``entry()``) make the
-flux exact in any order, so there everything is bitwise. At these sizes
-both routes take the tail kernel (``ops/steady_tail.py``), so the graphed
-tail equals the eager one bitwise and the cuBLAS early-exit loop within
-``testing.tail_order_excess``. The traced graph of ``tracing.collect()``
-gives the plain graph's outputs, counts the tail's rounds and the replays
-whose tail took the kernel, and times two intervals that fit in the step's
-device time.
+flux exact in any order, so there everything is bitwise. At up to
+``S_MAX`` states both routes take the tail kernel (``ops/steady_tail.py``),
+so the graphed tail equals the eager one bitwise and the cuBLAS early-exit
+loop within ``testing.tail_order_excess``. Above ``S_MAX`` an f32 flux
+matrix takes the tail in float64 (conditional nodes in the graph, guarded
+rounds eagerly): both take the float64 early-exit loop's rounds and lie
+within their f32 rounding (and 1e-12) of its outputs, also at 3,202
+states, the 128-bin step of the ``ntl9_100k.bins128`` cell, under twelve
+orders of its segments. The traced graph of ``tracing.collect()`` gives
+the plain graph's outputs, counts the tail's rounds and the replays whose
+tail took the kernel or the float64 route, and times two intervals that
+fit in the step's device time.
 """
 import functools
 import gc
@@ -38,6 +43,7 @@ from msm_we_tpu_torch.entry import (
 from msm_we_tpu_torch.ops import steady_tail as st
 from msm_we_tpu_torch.ops import stratified_assign as sa
 from msm_we_tpu_torch.testing import (
+    f32_rounding_excess,
     flux_order_bound,
     make_problem,
     steady_state_early_exit,
@@ -194,6 +200,71 @@ def _bipartite(S=13, seed=1):
             ).astype(np.float32)
 
 
+def _lopsided(eps, S=642, ratio=10.0, seed=0):
+    """Two halves joined by flux ``eps`` one way and ``ratio * eps`` the
+    other: the float64 tail takes more extra squarings the smaller ``eps``
+    (``test_torch_device_loops.py``)."""
+    rng = np.random.default_rng(seed)
+    fm = rng.random((S, S))
+    half = np.arange(S) < S // 2
+    fm[half[:, None] & ~half[None, :]] *= eps
+    fm[~half[:, None] & half[None, :]] *= eps * ratio
+    return fm.astype(np.float32)
+
+
+def _within_f32_rounding(got, ref):
+    """Whether each f32 output of ``got`` lies within its own f32 rounding
+    and 1e-12 of the float64 ``ref`` (``testing.f32_rounding_excess``)."""
+    return (all(g.dtype == torch.float32 for g in got)
+            and f32_rounding_excess(got, ref) <= 1e-12)
+
+
+def _eager_rounds(fm, basis, target, tol=1e-6):
+    """The eager route's tail and the extra squarings its guarded rounds
+    kept: ``step._where_rounds`` one round at a time, each round's flag
+    read after the tail."""
+    flags = []
+
+    def rounds(Tn, p, residual, T, tol, n):
+        for _ in range(n):
+            flags.append(residual > tol)
+            Tn, p, residual = tstep._where_rounds(Tn, p, residual, T, tol, 1)
+        return Tn, p, residual
+
+    out = tstep._steady_state(fm, basis, target, 512, tol, 16, rounds)
+    return out, sum(int(f) for f in flags)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("make,rounds", [(lambda: _coupled(0.1, S=642), 0),
+                                         (lambda: _lopsided(5e-5), 5),
+                                         (lambda: _bipartite(S=643), 16)],
+                         ids=["wide_round_0", "wide_round_5", "wide_never"])
+def test_graphed_f64_tail_equals_the_float64_loop(cuda_device, make, rounds):
+    """Above ``S_MAX`` the graphed and the eager tail of an f32 flux matrix
+    run in float64: the float64 early-exit loop's rounds (the traced
+    graph's counter, the eager route's kept rounds) and its outputs within
+    their f32 rounding; every traced replay counts as the float64 route and
+    none as the kernel."""
+    fm = torch.tensor(make(), device=cuda_device)
+    S = fm.shape[0]
+    assert st.tail_dtype(fm.dtype, S) == torch.float64
+    basis, target = _state_masks(S, cuda_device)
+    *ref, n_extra = steady_state_early_exit(fm.double(), basis, target)
+    assert n_extra == rounds
+    eager, kept = _eager_rounds(fm, basis, target)
+    assert kept == n_extra and _within_f32_rounding(eager, ref)
+    before = sa.launch_counts()["steady_tail"]
+    outs, col = _traced_runs(lambda: _graph.run(
+        tstep.steady_state_from_flux, _graph.steady_state_conditional, fm,
+        basis, target), 3)
+    assert sa.launch_counts()["steady_tail"] == before
+    for got in outs:
+        assert _within_f32_rounding(got, ref)
+    assert col.counts["tail_rounds"] == 3 * n_extra
+    assert col.counts["tail_f64"] == 3 and col.counts["tail_fused"] == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("make,rounds", [(lambda: _coupled(0.1), 0),
                                          (lambda: _coupled(1.5e-4), 5),
@@ -319,3 +390,45 @@ def test_the_device_intervals_fit_in_the_steps_device_time(cuda_device, problem0
     assert 0 < af and 0 < tail
     assert af + tail <= sorted(alone)[n // 2]
     assert 0.8 * queued <= af + tail <= 1.05 * queued
+
+
+@pytest.mark.cuda
+def test_bins128_tail_takes_the_float64_loops_rounds_in_every_order(cuda_device):
+    """The ``ntl9_100k.bins128`` cell's step (``make_problem`` seed 0, 128
+    bins x 25: 3,202 states) with its segments dealt out in twelve orders,
+    as the cell's runs deal them (``benchmark/traffic/hot_problem.reorder``):
+    in every order the graphed tail (the traced graph's counter) and the
+    eager tail take the float64 early-exit loop's rounds on their own flux
+    matrix, the same number in every order, and give its outputs within
+    their f32 rounding; every traced replay counts as the float64 route."""
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from benchmark.traffic.hot_problem import reorder
+
+    base = make_problem(seed=0, n_bins=128)
+    S = int(base["n_states"])
+    assert S == 3202
+    basis, target = _state_masks(S, cuda_device)
+    seen = set()
+    for seed in range(2**31 + 101, 2**31 + 113):
+        s = stage_problem(reorder(base, seed), "two_transform", cuda_device)
+        outs, col = _traced_runs(lambda: hot_step(s, "two_transform"), 2)
+        want = []
+        for o in outs:
+            *ref, n_extra = steady_state_early_exit(o["fm"].double(), basis, target)
+            want.append(n_extra)
+            assert _within_f32_rounding((o["pss"], o["flux"]), ref[1:3]), seed
+        assert col.counts["tail_rounds"] == sum(want), (seed, want)
+        assert col.counts["tail_f64"] == 2 and col.counts["tail_fused"] == 0
+        fm = _hot_step_eager(s, "two_transform")["fm"]
+        *ref, n_extra = steady_state_early_exit(fm.double(), basis, target)
+        eager, kept = _eager_rounds(fm, basis, target)
+        assert kept == n_extra and _within_f32_rounding(eager, ref), seed
+        seen |= set(want) | {kept}
+        del s, outs
+        gc.collect()
+    assert len(seen) == 1, seen

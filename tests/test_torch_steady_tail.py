@@ -3,7 +3,13 @@
 only on the card: ``tests/test_torch_steady_tail_cuda.py``.
 
 * the route: CUDA, f32 and at most ``S_MAX`` states take the kernel, and
-  nothing else does; the eager and the graphed tail ask the same rule;
+  nothing else does; an f32 matrix of more than ``S_MAX`` states takes the
+  PyTorch tail in float64, on the CPU and on CUDA alike, its outputs in
+  f32; the eager and the graphed tail ask the same rules, and a traced
+  graph counts the replays whose tail took the float64 route;
+* a 128-bin hot step on the CPU (642 states: the float64 route) passes the
+  ``ntl9_100k.bins128`` cell's check (``benchmark/reference/hot_step.py``)
+  within the cell's limits;
 * the plain version is the PyTorch tail with guarded rounds, bitwise the
   early-exit loop, which counts the rounds;
 * the bounds the card tests hold the kernel to pass between two summation
@@ -12,7 +18,11 @@ only on the card: ``tests/test_torch_steady_tail_cuda.py``.
 * the traced graph counts the replays whose tail took the kernel;
 * the kernel source carries its note.
 """
+import json
+import sys
+from contextlib import contextmanager
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -28,7 +38,7 @@ from msm_we_tpu_torch.testing import (
     tail_residual_excess,
 )
 
-from test_torch_device_loops import CASES
+from test_torch_device_loops import CASES, WIDE_CASES
 
 torch.set_num_threads(1)
 
@@ -38,25 +48,33 @@ def _masks(S):
     return ids == S - 2, ids == S - 1
 
 
-# (device, dtype, S, takes the kernel)
+F32, F64, F16 = torch.float32, torch.float64, torch.float16
+
+# (device, dtype, S, takes the kernel, dtype of the PyTorch tail)
 ROUTES = {
-    "cpu_f32": ("cpu", torch.float32, 252, False),
-    "cpu_f32_entry": ("cpu", torch.float32, 18, False),
-    "cuda_f32_entry": ("cuda", torch.float32, 18, True),
-    "cuda_f32_bins10": ("cuda", torch.float32, 252, True),
-    "cuda_f32_s_max": ("cuda", torch.float32, st.S_MAX, True),
-    "cuda_f32_above": ("cuda", torch.float32, st.S_MAX + 1, False),
-    "cuda_f32_bins128": ("cuda", torch.float32, 3202, False),
-    "cuda_f64": ("cuda", torch.float64, 252, False),
-    "cuda_f16": ("cuda", torch.float16, 252, False),
+    "cpu_f32": ("cpu", F32, 252, False, F32),
+    "cpu_f32_entry": ("cpu", F32, 18, False, F32),
+    "cuda_f32_entry": ("cuda", F32, 18, True, F32),
+    "cuda_f32_bins10": ("cuda", F32, 252, True, F32),
+    "cuda_f32_s_max": ("cuda", F32, st.S_MAX, True, F32),
+    "cuda_f32_above": ("cuda", F32, st.S_MAX + 1, False, F64),
+    "cuda_f32_bins128": ("cuda", F32, 3202, False, F64),
+    "cuda_f64": ("cuda", F64, 252, False, F64),
+    "cuda_f16": ("cuda", F16, 252, False, F16),
+    "cpu_f32_s_max": ("cpu", F32, st.S_MAX, False, F32),
+    "cpu_f32_above": ("cpu", F32, st.S_MAX + 1, False, F64),
+    "cpu_f32_bins128": ("cpu", F32, 3202, False, F64),
+    "cuda_f64_bins128": ("cuda", F64, 3202, False, F64),
+    "cuda_f16_bins128": ("cuda", F16, 3202, False, F16),
 }
 
 
 @pytest.mark.parametrize("name", list(ROUTES))
 def test_the_route_rule(name):
-    device, dtype, S, kernel = ROUTES[name]
+    device, dtype, S, kernel, tail = ROUTES[name]
     assert st.uses_kernel(torch.device(device), dtype, S) is kernel
     assert st.uses_kernel(device, dtype, S) is kernel
+    assert st.tail_dtype(dtype, S) is tail
 
 
 def test_s_max_lies_between_the_cells_sizes():
@@ -111,6 +129,123 @@ def test_the_tail_asks_the_route(form, kernel, monkeypatch):
         assert torch.equal(g, r)
     assert fake.calls == ([dict(n_iters=256, tol=1e-5, max_extra=16,
                                 counter=None)] if kernel else [])
+
+
+@contextmanager
+def _capture_on_cpu(monkeypatch):
+    """What ``_graph.steady_state_conditional`` sees of a capture, on CPU
+    tensors: each conditional node runs its block where its flag holds and
+    undoes it where it does not, as a replay does."""
+    cap = SimpleNamespace(marks=None, rounds=None, fused=False, f64=False)
+    state = []
+
+    @contextmanager
+    def run_where(flag):
+        saved = None if bool(flag) else [t.clone() for t in state]
+        yield
+        if saved is not None:
+            for t, v in zip(state, saved):
+                t.copy_(v)
+
+    real_rounds = _graph.conditional_rounds
+
+    def rounds(Tn, p, residual, T, tol, n_rounds):
+        state[:] = [Tn, p, residual]
+        return real_rounds(Tn, p, residual, T, tol, n_rounds)
+
+    monkeypatch.setattr(_graph, "conditional", run_where)
+    monkeypatch.setattr(_graph, "conditional_rounds", rounds)
+    monkeypatch.setattr(_graph._local, "capture", cap, raising=False)
+    try:
+        yield cap
+    finally:
+        _graph._local.capture = None
+
+
+@pytest.mark.parametrize("form", ["eager", "graphed"])
+def test_both_forms_ask_the_dtype_rule(form, monkeypatch):
+    """The eager and the graphed tail take their dtype from
+    ``tail_dtype`` alone: told float64 for a small f32 matrix, both run the
+    float64 early-exit loop's tail and return it in f32, and a capture is
+    marked as the float64 route."""
+    asked = []
+
+    def rule(dtype, S):
+        asked.append((dtype, S))
+        return torch.float64
+
+    monkeypatch.setattr(st, "tail_dtype", rule)
+    fm = torch.tensor(CASES["round_5"][0]())
+    basis, target = _masks(fm.shape[0])
+    *ref, n_extra = steady_state_early_exit(fm.double(), basis, target)
+    if form == "eager":
+        got = tstep.steady_state_from_flux(fm, basis, target)
+    else:
+        with _capture_on_cpu(monkeypatch) as cap:
+            got = _graph.steady_state_conditional(fm, basis, target)
+        assert cap.f64 and not cap.fused
+    assert set(asked) == {(torch.float32, 12)}
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.float32 and torch.equal(g, r.float())
+
+
+# name -> (flux matrix, its dtype, whether a capture takes the f64 route)
+CAPTURES = {
+    "f32_small": (lambda: CASES["round_5"][0](), torch.float32, False),
+    "f32_above": (lambda: WIDE_CASES["wide_round_5"][0](), torch.float32, True),
+    "f64_above": (lambda: WIDE_CASES["wide_round_5"][0](), torch.float64, False),
+}
+
+
+@pytest.mark.parametrize("name", list(CAPTURES))
+def test_a_capture_is_marked_where_its_tail_takes_the_f64_route(name,
+                                                                monkeypatch):
+    """``steady_state_conditional`` marks the capture (and so the traced
+    graph's ``tail_f64``) only for an f32 matrix above ``S_MAX``, and
+    returns the eager route's outputs in the input's dtype."""
+    make, dtype, f64 = CAPTURES[name]
+    fm = torch.tensor(make(), dtype=dtype)
+    basis, target = _masks(fm.shape[0])
+    with _capture_on_cpu(monkeypatch) as cap:
+        got = _graph.steady_state_conditional(fm, basis, target)
+    assert cap.f64 is f64 and not cap.fused
+    for g, e in zip(got, tstep.steady_state_from_flux(fm, basis, target)):
+        assert g.dtype == dtype and torch.equal(g, e)
+
+
+def _cell_limits():
+    root = Path(__file__).resolve().parents[1]
+    path = root / "benchmark" / "workloads" / "ntl9_100k.bins128.json"
+    return json.loads(path.read_text())["checks"]
+
+
+def test_a_128_bin_hot_step_passes_the_cells_check():
+    """``make_problem(n_bins=128, k_per_bin=5)``: 642 states, above
+    ``S_MAX``, so the CPU step's tail runs in float64. Its outputs, judged
+    by the benchmark's float64 reference, lie within every limit of the
+    ``ntl9_100k.bins128`` cell; the f32 tail, at its rounding floor, takes
+    all 16 extra squarings on the same flux matrix."""
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from benchmark.reference.hot_step import Judge
+    from msm_we_tpu_torch.entry import hot_step
+    from msm_we_tpu_torch.testing import make_problem
+
+    p = make_problem(n_segments=4096, n_raw_features=64, n_components=8,
+                     n_bins=128, k_per_bin=5, seed=0)
+    assert p["n_states"] == 642 > st.S_MAX
+    out = hot_step(p, "two_transform", "cpu")
+    assert out["pss"].dtype == torch.float32
+    basis, target = _masks(642)
+    *_ref, n64 = steady_state_early_exit(out["fm"].double(), basis, target)
+    assert n64 == 0
+    assert steady_state_early_exit(out["fm"], basis, target)[-1] == 16
+    numbers = Judge(p)(out)
+    limits = _cell_limits()
+    assert set(limits) <= set(numbers)
+    for name, limit in limits.items():
+        assert numbers[name] <= limit, (name, numbers[name], limit)
 
 
 @pytest.mark.parametrize("tol", [1e-6, 0.0])
@@ -236,6 +371,40 @@ def test_the_traced_graph_counts_fused_replays(fused):
     col.close()
     assert col.counts["tail_fused"] == (3 if fused else 0)
     assert col.device_ms["tail"] == [0.25] * 3
+
+
+@pytest.mark.parametrize("f64", [True, False])
+def test_the_traced_graph_counts_f64_replays(f64):
+    entry = _graph._Captured(None, -1, [], None, [],  # -1: no device
+                             marks=[_Event(), _Event(), _Event()],
+                             rounds=torch.zeros((), dtype=torch.int32),
+                             f64=f64)
+    col = tracing.Collector()
+    for _ in range(3):
+        col.using(entry)
+    col.close()
+    assert col.counts["tail_f64"] == (3 if f64 else 0)
+    assert col.counts["tail_fused"] == 0
+    assert col.counts["tail_rounds"] == 0
+
+
+@pytest.mark.parametrize("dtype,S", [(torch.float64, 642), (torch.float32, 642),
+                                     (torch.float64, 12), (torch.float32, 13)])
+def test_squared_rows_start_on_row_align_bytes(dtype, S):
+    """The tail's transition matrix and its squares keep their rows on
+    ``step.ROW_ALIGN`` bytes (cuBLAS's faster product), with the values of
+    a plain product renormalised."""
+    fm = torch.tensor(np.random.default_rng(3).random((S, S)), dtype=dtype)
+    T = tstep._aligned(fm)
+    sq = tstep._square(T)
+    for x in (T, sq):
+        assert x.shape == (S, S) and x.stride(1) == 1
+        assert x.stride(0) * x.element_size() % tstep.ROW_ALIGN == 0
+        assert 0 <= x.stride(0) - S < tstep.ROW_ALIGN // x.element_size()
+    assert torch.equal(T, fm)
+    plain = fm @ fm
+    torch.testing.assert_close(sq, plain / plain.sum(1, keepdim=True),
+                               rtol=4 * S * torch.finfo(dtype).eps, atol=0)
 
 
 def test_the_kernel_source_carries_its_note():

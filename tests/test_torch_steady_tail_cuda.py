@@ -26,6 +26,7 @@ from msm_we_tpu_torch.entry import _state_masks, entry, hot_step, stage_problem
 from msm_we_tpu_torch.ops import steady_tail as st
 from msm_we_tpu_torch.ops import stratified_assign as sa
 from msm_we_tpu_torch.testing import (
+    f32_rounding_excess,
     make_problem,
     steady_state_early_exit,
     tail_order_excess,
@@ -121,7 +122,9 @@ def test_two_runs_are_bitwise_equal(cuda_device, problem0_fm, name):
 @pytest.mark.parametrize("S", [st.S_MAX, st.S_MAX + 1])
 def test_the_eager_tail_launches_the_kernel_up_to_s_max(cuda_device, S):
     """At ``S_MAX`` the eager tail is the kernel's; above it the PyTorch
-    tail runs (no launch of the kernel), bitwise the plain version."""
+    tail runs in float64 (no launch of the kernel), bitwise the plain
+    version, its f32 outputs within their rounding (and 1e-12) of the
+    float64 early-exit loop's."""
     fm = _dense(S)
     basis, target = _state_masks(S, cuda_device)
     before = sa.launch_counts()["steady_tail"]
@@ -134,8 +137,10 @@ def test_the_eager_tail_launches_the_kernel_up_to_s_max(cuda_device, S):
         ref = tstep._steady_state(fm, basis, target, 512, 1e-6, 16,
                                   tstep._where_rounds)
         assert launched == 0
+        *loop, _n = steady_state_early_exit(fm.double(), basis, target)
+        assert f32_rounding_excess(got, loop) <= 1e-12
     for g, r in zip(got, ref):
-        assert torch.equal(g, r)
+        assert g.dtype == torch.float32 and torch.equal(g, r)
 
 
 def _bad_inputs(name):
