@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``msm_we_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases device,build,kernels,main,analysis,access,routes,mesh,plugins,configs,tail] [--out DIR]
+    python3 chip_smoke.py [--phases device,build,kernels,main,analysis,access,routes,mesh,plugins,configs,tail,route] [--out DIR]
 
 Phases, each printing one JSON line:
 
@@ -27,7 +27,8 @@ Phases, each printing one JSON line:
    build (``modelWE.build_analyze_model``) on a 101 x 1,000 synthetic WE
    run generated in memory, cold with ``device="cuda"``, then warm with
    ``modelWE()`` (the default device must be the card). Every kernel must
-   have launched. A capture only records launches, so a graph's launches
+   have launched, but H2 where the step's bank takes the bin-grouped route
+   (``entry.grouped_route``). A capture only records launches, so a graph's launches
    are counted in a ``torch.profiler`` trace of its replays (each kernel
    of the graph must show there); the wrappers count the captures'
    warm-ups and the builds. After that count, each tier's line times the
@@ -169,6 +170,13 @@ Phases, each printing one JSON line:
    line, as the ``main`` phase's for the tail kernel, with the float64
    route's forms, its device ms and bound, and the parent's f32 tail
    beside it (``_tail_rounds``).
+12. ``route``: the ``two_transform`` step's assignment and flux by H2 and
+   by the bin-grouped route (features-only H1, then H3 on H2's
+   ``c2adj``) at 1 to 128 bins of 25 centers (``ROUTE_BINS``)
+   (``make_problem()``'s rows): ids and the dyadic flux bitwise equal,
+   each route's device ms a replay of its own CUDA graph by events, the
+   route ``entry.grouped_route`` takes; the sweep that set
+   ``entry.GROUPED_MIN_OFF_BIN``.
 
 The line before the last is the ``{"kernels": [...]}`` summary and the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -186,7 +194,7 @@ import time
 from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "main", "analysis", "access", "routes",
-          "mesh", "plugins", "configs", "tail")
+          "mesh", "plugins", "configs", "tail", "route")
 
 KERNEL_INFO = {
     "transform_assign_child": dict(
@@ -750,8 +758,11 @@ def _build_parity(data, scan):
     return res
 
 
-# The wrappers each graph of the main path calls
+# The wrappers each graph of the main path calls (a two_transform step
+# whose bank takes the bin-grouped route, ``entry.grouped_route``: H1 and H3)
 GRAPH_KERNELS = {"two_transform": ("transform_assign", "steady_tail"),
+                 "two_transform_grouped": ("transform_assign_child", "assign_flux",
+                                           "steady_tail"),
                  "dedup": ("transform_assign_child", "assign_flux", "steady_tail"),
                  "entry": ("assign_flux", "steady_tail")}
 
@@ -1046,6 +1057,143 @@ def _tail_rounds_f64(fm, reps):
     return res
 
 
+# ------------------------------------------------------------------ route
+
+ROUTE_BINS = (1, 2, 3, 4, 6, 8, 10, 16, 24, 32, 48, 64, 128)  # of 25 centers
+
+
+def _queued_replay_ms(launch, n):
+    """Device milliseconds of one ``launch()`` of a captured graph: ``n``
+    launches queued behind a spin kernel, between CUDA events, so no host
+    time is in it."""
+    import torch
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(int(2e7))  # ~10 ms at 2 GHz: the replays queue meanwhile
+    ev[1].record()
+    t = time.perf_counter()
+    for _ in range(n):
+        launch()
+    queued_ms = (time.perf_counter() - t) * 1e3
+    ev[2].record()
+    torch.cuda.synchronize()
+    require(queued_ms < ev[0].elapsed_time(ev[1]),
+            "the spin ended before the replays were queued")
+    return ev[1].elapsed_time(ev[2]) / n
+
+
+def _peak_mb(fn):
+    """Device memory a run of ``fn`` holds at its peak above what was
+    allocated before it, in MB."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e6
+
+
+def phase_route(args, summary):
+    """The ``two_transform`` step's assignment and flux by both routes
+    (``entry._two_transform``): H2 alone, and the bin-grouped route (two
+    features-only H1 launches, then H3 on H2's ``c2adj``), on
+    ``make_problem()``'s rows at each of ``ROUTE_BINS`` bins of 25 centers.
+    Ids and the dyadic f32 flux must be bitwise equal between the routes.
+    Each route is captured into a CUDA graph of its own, and its device ms
+    a replay is the median of five turns of 20 replays queued behind a
+    spin, the routes alternating. Beside them: which route
+    ``entry.grouped_route`` takes, each route's kernels' device ms
+    (``torch.profiler``), its CUDA-event ms as eager launches, its bound
+    (bytes over 3.35 TB/s or f32 FLOPs over 67 TFLOP/s; the grouped route
+    also writes and reads the features once) and the memory it holds above
+    the staged problem. The crossover sets
+    ``entry.GROUPED_MIN_OFF_BIN``."""
+    import numpy as np
+    import torch
+
+    from msm_we_tpu_torch import _graph, entry
+    from msm_we_tpu_torch.testing import make_problem
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(19)
+    lines = []
+    for n_bins in ROUTE_BINS:
+        p = make_problem(n_bins=n_bins)
+        s = entry.stage_problem(p, "two_transform", dev)
+        del p
+        N, D = s["raw_child"].shape
+        F = s["comp"].shape[1]
+        K = s["centers"].shape[0]
+        S = s["n_states"]
+        bank = (s["centers"], s["center_bin"], s["valid"])
+        # Dyadic weights: the f32 flux is exact in any order of the atomics
+        sd = dict(s, w=torch.as_tensor(rng.integers(1, 17, N) / 16.0,
+                                       dtype=torch.float32, device=dev))
+        h2, grouped = (entry._two_transform(sd, g) for g in (False, True))
+        for a, b, what in zip(h2, grouped, ("pidx", "cidx", "fm")):
+            require(torch.equal(a, b),
+                    f"route [{n_bins} bins]: {what} differs between H2 and "
+                    f"the bin-grouped route")
+        del sd, h2, grouped
+        routes = {False: lambda: entry._two_transform(s, False),
+                  True: lambda: entry._two_transform(s, True)}
+        graphs = {g: _graph.capture(fn, fn, (), dev) for g, fn in routes.items()}
+        times = {False: [], True: []}
+        for turn in range(5):
+            for g in ((False, True) if turn % 2 == 0 else (True, False)):
+                times[g].append(_queued_replay_ms(graphs[g].launch, 20))
+        del graphs
+        pairs = _same_bin_pairs(s["pbins"], bank) + _same_bin_pairs(s["cbins"], bank)
+        fm32 = torch.empty((S, S), dtype=torch.float32, device=dev)
+        ids = torch.empty(2 * N, dtype=torch.int32, device=dev)
+        inputs = [s["raw_parent"], s["raw_child"], s["pbins"], s["cbins"],
+                  s["w"], s["basis_p"], s["basis_c"], s["target_c"], s["mean"],
+                  s["comp"], *bank, ids, fm32]
+        feats = torch.empty((2, N, F), dtype=torch.float32, device=dev)
+        flops = 4 * N * D * F + 2 * pairs * F
+        line = dict(
+            phase="route", n_bins=n_bins, K=int(K), n=int(N),
+            off_bin=float(K - K / n_bins), rule_grouped=bool(s["grouped"]),
+            ids_bitwise=True, flux_bitwise=True,
+            h2_graph_ms=_median(times[False]), grouped_graph_ms=_median(times[True]),
+            h2_graph_ms_all=times[False], grouped_graph_ms_all=times[True],
+            h2_ms=cuda_ms(routes[False], args.reps),
+            grouped_ms=cuda_ms(routes[True], args.reps),
+            h2_kernel_ms=device_ms(routes[False], "stratified_assign_kernel",
+                                   args.reps),
+            grouped_transform_ms=device_ms(routes[True], "stratified_assign_kernel",
+                                           args.reps),
+            grouped_h3_ms=device_ms(routes[True], "assign_flux_kernel", args.reps),
+            grouped_plan_ms=device_ms(routes[True], "plan_", args.reps),
+            h2_bound=_bound(inputs, flops),
+            grouped_bound=_bound(inputs + [feats, feats], flops),
+            h2_peak_mb=_peak_mb(routes[False]),
+            grouped_peak_mb=_peak_mb(routes[True]))
+        line["faster"] = ("grouped" if line["grouped_graph_ms"] < line["h2_graph_ms"]
+                          else "h2")
+        emit(line)
+        lines.append(line)
+        del s, routes, inputs, feats, fm32, ids
+        torch.cuda.empty_cache()
+    # The least count of centers outside a row's bin from which the grouped
+    # route wins at every point of the sweep (ROUTE_BINS ascend)
+    crossover = None
+    for ln in reversed(lines):
+        if ln["faster"] != "grouped":
+            break
+        crossover = ln["off_bin"]
+    summary["route"] = dict(
+        h2_graph_ms={ln["n_bins"]: ln["h2_graph_ms"] for ln in lines},
+        grouped_graph_ms={ln["n_bins"]: ln["grouped_graph_ms"] for ln in lines},
+        grouped_wins_from_off_bin=crossover,
+        rule_agrees=all(ln["rule_grouped"] == (ln["faster"] == "grouped")
+                        for ln in lines))
+    emit(dict(phase="route_sweep", **summary["route"]))
+
+
 def phase_tail(args, summary):
     """The steady-state tail above ``S_MAX``: the float64 route on the
     ``ntl9_100k.bins128`` cell's flux matrix (3,202 states)."""
@@ -1170,6 +1318,7 @@ def phase_main(args, summary):
     prob = make_problem()
     N = len(prob["w"])
     staged = {t: stage_problem(prob, t, dev) for t in TIERS}
+    staged_grouped = staged["two_transform"]["grouped"]
     del prob
     t0 = time.perf_counter()
     data = generate_we_arrays(n_iterations=101, n_segments=1000, seed=17)
@@ -1184,8 +1333,9 @@ def phase_main(args, summary):
     traced = {}
     for tier in TIERS:
         s = staged[tier]
+        graph = tier + ("_grouped" if s.get("grouped") else "")
         out, traced[tier] = _graphed_run(lambda: hot_step(s, tier), args.reps,
-                                         tier, graph_launches)
+                                         graph, graph_launches)
         fm = out["fm"]
         pss_sum = float(out["pss"].sum())
         require(bool(torch.isfinite(fm).all()) and fm.shape == (252, 252),
@@ -1220,8 +1370,12 @@ def phase_main(args, summary):
               clusters_before=int(model.fluxMatrixRaw.shape[0]),
               clusters_after=int(model.fluxMatrix.shape[0]),
               JtargetSS=float(model.JtargetSS)))
+    # H2 is off the main path where its bank takes the bin-grouped route
+    # (the kernels and route phases run it)
+    off_path = {"transform_assign"} if staged_grouped else set()
     for name in sa.KERNELS:
-        require(counts[name] > 0, f"kernel {name} never launched on the main path")
+        require(counts[name] > 0 or name in off_path,
+                f"kernel {name} never launched on the main path")
     summary["launches"] = counts
     summary["launches_graph"] = graph_launches
     summary["build_warm_s"] = builds[1]
@@ -3628,6 +3782,8 @@ def main(argv=None):
         phase_configs(args, summary)
     if "tail" in phases:
         phase_tail(args, summary)
+    if "route" in phases:
+        phase_route(args, summary)
 
     launches = summary.get("launches", {})
     launches_analysis = summary.get("launches_analysis", {})

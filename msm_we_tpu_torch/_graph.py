@@ -43,10 +43,12 @@ PyTorch route each conditional round adds one). The block's collector reads
 each replay's two intervals, ``device_ms["assign_flux"]`` and
 ``device_ms["tail"]``, before the next traced replay overwrites them, and
 counts the replays whose tail took the kernel, ``counts["tail_fused"]``,
-and those whose tail took the float64 route (an f32 flux matrix of more
+those whose tail took the float64 route (an f32 flux matrix of more
 than ``S_MAX`` states, ``ops.steady_tail.tail_dtype``),
-``counts["tail_f64"]``; it reads the counter, ``counts["tail_rounds"]``,
-once when the block closes.
+``counts["tail_f64"]``, and those whose ``two_transform`` assignment
+scored bin-grouped (``entry.grouped_route``), ``counts["assign_grouped"]``;
+it reads the counter, ``counts["tail_rounds"]``, once when the block
+closes.
 With neither on, a run opens no span: it reads one count and the
 profiler's flag in :func:`run` and again in ``GraphCache.run``.
 
@@ -74,8 +76,8 @@ from . import step, tracing
 from .ops import steady_tail
 from .ops._ext import check, library
 
-__all__ = ["CACHE_SIZE", "GraphCache", "conditional", "conditional_rounds",
-           "graph_key", "run", "steady_state_conditional"]
+__all__ = ["CACHE_SIZE", "GraphCache", "assign_grouped", "conditional",
+           "conditional_rounds", "graph_key", "run", "steady_state_conditional"]
 
 CACHE_SIZE = 4
 _local = threading.local()  # .capture: the _Capture under way in this thread
@@ -99,12 +101,13 @@ class _Captured:
     """A captured graph and its static outputs (``bodies``: the graphs of
     its conditional nodes, kept with it). A traced graph also holds its
     three timing events (``marks``: start, tail, end), its round counter
-    (``rounds``), whether its tail is the tail kernel (``fused``) and
-    whether it runs in float64 for an f32 flux matrix (``f64``), and is a
-    traced source of ``tracing.Collector``."""
+    (``rounds``), whether its tail is the tail kernel (``fused``), whether
+    it runs in float64 for an f32 flux matrix (``f64``) and whether its
+    assignment scored bin-grouped (``grouped``), and is a traced source of
+    ``tracing.Collector``."""
 
     def __init__(self, graph, device, outputs, spec, bodies, marks=None,
-                 rounds=None, fused=False, f64=False):
+                 rounds=None, fused=False, f64=False, grouped=False):
         self.graph = graph
         self.device = device
         self.outputs = outputs
@@ -114,6 +117,7 @@ class _Captured:
         self.rounds = rounds
         self.fused = fused
         self.f64 = f64
+        self.grouped = grouped
 
     def launch(self):
         with torch.cuda.device(self.device):
@@ -139,6 +143,8 @@ class _Captured:
         col.device_ms.setdefault("tail", []).append(tail.elapsed_time(end))
         col.counts["tail_fused"] = col.counts.get("tail_fused", 0) + int(self.fused)
         col.counts["tail_f64"] = col.counts.get("tail_f64", 0) + int(self.f64)
+        col.counts["assign_grouped"] = (col.counts.get("assign_grouped", 0)
+                                        + int(self.grouped))
 
     def close(self, col):
         col.counts["tail_rounds"] = col.counts.get("tail_rounds", 0) + int(self.rounds)
@@ -148,7 +154,8 @@ class _Capture:
     """What :func:`conditional` and the tail need of the capture under way
     (``marks`` and ``rounds``: a traced capture's events and counter;
     ``fused``: set where the tail took the tail kernel; ``f64``: where it
-    took the float64 route)."""
+    took the float64 route; ``grouped``: where the assignment scored
+    bin-grouped)."""
 
     def __init__(self, stream, marks=None, rounds=None):
         self.stream = stream
@@ -158,6 +165,16 @@ class _Capture:
         self.rounds = rounds
         self.fused = False
         self.f64 = False
+        self.grouped = False
+
+
+def assign_grouped():
+    """Marks the capture under way, if any, as a step whose assignment
+    scored bin-grouped (``entry.grouped_route``): its traced replays count
+    in ``counts["assign_grouped"]``."""
+    cap = getattr(_local, "capture", None)
+    if cap is not None:
+        cap.grouped = True
 
 
 def _check_precision():
@@ -270,7 +287,7 @@ def capture(eager, graphed, args, device, traced=False):
             _local.capture = None
     outputs, spec = pytree.tree_flatten(out)
     return _Captured(graph, device, outputs, spec, cap.bodies, marks, rounds,
-                     cap.fused, cap.f64)
+                     cap.fused, cap.f64, cap.grouped)
 
 
 class GraphCache:

@@ -27,15 +27,27 @@ from . import _graph
 from ._device import as_device, to_device
 from .ops.stratified_assign import (
     assign_flux,
+    c2adj,
     transform_assign,
     transform_assign_child,
 )
 from .step import _discretize_and_flux, steady_state_from_flux
 from .testing import tiny_stratified_problem
 
-__all__ = ["entry", "stage_problem", "hot_step", "dryrun_multichip", "TIERS"]
+__all__ = ["entry", "stage_problem", "hot_step", "dryrun_multichip", "TIERS",
+           "GROUPED_MIN_OFF_BIN", "grouped_route"]
 
 TIERS = ("two_transform", "dedup")
+
+# The two_transform step scores bin-grouped once a row's bin leaves this
+# many valid centers of the bank outside it: H2 stages the whole bank into
+# every tile and scores each 32-center sub-tile a warp's rows need, so its
+# time grows with the centers outside the rows' bins, while the grouped
+# route pays a second pass over the features. The crossover of
+# chip_smoke.py's ``route`` phase on an H100 (PERF.md, section 6; 1 to 128
+# bins of 25 centers, each route a CUDA graph): H2 wins at 6 bins (150
+# outside), the grouped route at 8 (175) and at every count above.
+GROUPED_MIN_OFF_BIN = 175
 
 _ROW_KEYS = ("fp", "fc", "pbins", "cbins", "basis_p", "basis_c", "target_c",
              "w", "centers", "center_bin", "valid")
@@ -86,11 +98,26 @@ def entry(device="cuda"):
     return hamsm_forward, args
 
 
+def grouped_route(center_bin, valid):
+    """Whether the ``two_transform`` step scores bin-grouped for this bank
+    (host arrays): the valid centers outside a row's own bin, K less K over
+    the bins that hold valid centers, reach ``GROUPED_MIN_OFF_BIN``. Then
+    both raw sets go through H1's features-only transform and H3 scores
+    each row against its own bin's centers on H2's ``c2adj``, bitwise H2's
+    ids; below it, H2 alone."""
+    bins = np.asarray(center_bin)[np.asarray(valid, bool)]
+    K = len(bins)
+    n_bins = len(np.unique(bins))
+    return K > 0 and K - K / n_bins >= GROUPED_MIN_OFF_BIN
+
+
 def stage_problem(problem, tier, device):
     """Upload a ``make_problem()`` dict for ``hot_step`` (set-up, not part
     of a step). The ``dedup`` tier uploads one raw array: the child rows
     followed by the recycled parents' fallback frames, with
-    ``rows_ext`` addressing each parent's source row in it."""
+    ``rows_ext`` addressing each parent's source row in it. The
+    ``two_transform`` tier records its route (``grouped``,
+    :func:`grouped_route` of the bank)."""
     if tier not in TIERS:
         raise ValueError(f"tier must be one of {TIERS}, got {tier!r}")
     dev = as_device(device)
@@ -111,6 +138,7 @@ def stage_problem(problem, tier, device):
     if tier == "two_transform":
         s["raw_parent"] = to_device(p["raw_parent"], dev, f32)
         s["raw_child"] = to_device(p["raw_child"], dev, f32)
+        s["grouped"] = grouped_route(p["center_bin"], p["valid"])
         return s
     n = len(p["raw_child"])
     fb = np.asarray(p["fb_idx"])
@@ -135,7 +163,11 @@ def hot_step(problem, tier="two_transform", device="cuda"):
 
     ``two_transform`` (bench tier ``two_transform``): parent and child raw
     rows through one H2 launch (transform, assign, flux-order overrides,
-    f32 flux). ``dedup``: one features-only H1 launch transforms the
+    f32 flux), or, where :func:`grouped_route` takes the bank (8 or more
+    bins of 25 centers), through two features-only H1 launches and one H3
+    launch that scores each row against its own bin only, with the same
+    ids. ``dedup``: one
+    features-only H1 launch transforms the
     extended raw array once and emits its features (no scoring); parent
     features are a gather of them (WE continuity) and one H3 launch
     assigns both sets and scatters the flux. Any feature width. Either way
@@ -172,11 +204,7 @@ def _hot_step(s, tier, tail):
     S = s["n_states"]
     bank = (s["centers"], s["center_bin"], s["valid"])
     if tier == "two_transform":
-        pidx, cidx, fm = transform_assign(
-            s["raw_parent"], s["raw_child"], s["pbins"], s["cbins"], s["w"],
-            s["basis_p"], s["basis_c"], s["target_c"], s["mean"], s["comp"],
-            *bank, S,
-        )
+        pidx, cidx, fm = _two_transform(s, s["grouped"])
     else:
         _none, g = transform_assign_child(
             s["raw_ext"], s["bins_ext"], None, None, s["mean"], s["comp"],
@@ -194,6 +222,29 @@ def _hot_step(s, tier, tail):
     _T, pss, flux, residual = tail(fm, basis_mask, target_mask)
     return dict(fm=fm, pss=pss, flux=flux, residual=residual, pidx=pidx,
                 cidx=cidx)
+
+
+def _two_transform(s, grouped):
+    """The ``two_transform`` step's assignment and f32 flux on a staged
+    problem: ``(pidx, cidx, fm)``. ``grouped``: the uncentered features
+    ``g = raw P`` of both sets (H1, features only), then H3 on H2's
+    ``c2adj``, so every score is H2's bit for bit; else one H2 launch."""
+    S = s["n_states"]
+    bank = (s["centers"], s["center_bin"], s["valid"])
+    rows = (s["pbins"], s["cbins"], s["w"], s["basis_p"], s["basis_c"],
+            s["target_c"])
+    if not grouped:
+        return transform_assign(s["raw_parent"], s["raw_child"], *rows,
+                                s["mean"], s["comp"], *bank, S)
+    _graph.assign_grouped()
+    _none, gp = transform_assign_child(
+        s["raw_parent"], s["pbins"], None, None, s["mean"], s["comp"], *bank,
+        S, features_only=True)
+    _none, gc = transform_assign_child(
+        s["raw_child"], s["cbins"], None, None, s["mean"], s["comp"], *bank,
+        S, features_only=True)
+    a = c2adj(s["mean"], s["comp"], s["centers"]).contiguous()
+    return assign_flux(gp, gc, *rows, *bank, S, c2=a)
 
 
 def hot_problem(n_segments=102_400, seed=0):

@@ -18,7 +18,8 @@ kernels are deliberate, so that the kernels serve production:
 
 * scores are the production ``|c|^2 - 2 x.c`` (``ops/kmeans.py``), or
   ``c2adj - 2 (x P).c`` with the PCA centering folded into ``c2adj`` for
-  the transform entry points -- never ``|x|^2 - 2 x.c + |c|^2``;
+  the transform entry points (and for H3 given ``c2adj`` and the
+  uncentered ``x P``) -- never ``|x|^2 - 2 x.c + |c|^2``;
 * the parent target override ``target_p`` is applied (flux order: before
   basis, so basis wins; predict order: last, so target wins), as
   ``parallel/sharded.py::_apply_overrides`` does.
@@ -142,11 +143,12 @@ def transform_assign_plain(raw_p, raw_c, pbins, cbins, w, basis_p, basis_c,
 
 
 def assign_flux_plain(fp, fc, pbins, cbins, w, basis_p, basis_c, target_c,
-                      centers, center_bin, valid, n_states, target_p=None):
-    """Plain H3: assign both feature sets, flux-order overrides, flux.
-    Returns ``(pidx, cidx, fm)``."""
-    pidx = _argmin(fp, pbins, centers, center_bin, valid)
-    cidx = _argmin(fc, cbins, centers, center_bin, valid)
+                      centers, center_bin, valid, n_states, target_p=None,
+                      c2=None):
+    """Plain H3: assign both feature sets on ``c2 - 2 x.c`` (``c2`` None:
+    ``|c|^2``), flux-order overrides, flux. Returns ``(pidx, cidx, fm)``."""
+    pidx = _argmin(fp, pbins, centers, center_bin, valid, c2=c2)
+    cidx = _argmin(fc, cbins, centers, center_bin, valid, c2=c2)
     pidx, cidx = _overrides(pidx, cidx, basis_p, basis_c, target_c, n_states,
                             target_p, predict_order=False)
     return pidx, cidx, _flux(pidx, cidx, w, n_states)
@@ -497,17 +499,21 @@ def transform_assign(raw_p, raw_c, pbins, cbins, w, basis_p, basis_c,
 
 
 def assign_flux(fp, fc, pbins, cbins, w, basis_p, basis_c, target_c,
-                centers, center_bin, valid, n_states, target_p=None):
+                centers, center_bin, valid, n_states, target_p=None, c2=None):
     """H3 (``fused_assign_flux``): features in, parent and child masked
     assignment, flux-order overrides (``target_p`` before basis), and the
     (S, S) flux of ``w`` in its dtype. Returns ``(pidx, cidx, fm)``. Any
     feature width: on CUDA the plan kernels (``_plan_keys``) give each row
     its bin's group, and the kernel groups each block's rows by bin and
-    scores them against their bin's centers only."""
+    scores them against their bin's centers only.
+
+    Scores are ``c2 - 2 x.c``, with ``c2`` (K,) f32 the centers' ``|c|^2``
+    where None. Uncentered features ``g = raw P`` with ``c2 = c2adj(mean,
+    P, centers)`` score bitwise as H2 scores its raw rows."""
     if not _on_cuda(fc, "fc"):
         return assign_flux_plain(
             fp, fc, pbins, cbins, w, basis_p, basis_c, target_c, centers,
-            center_bin, valid, n_states, target_p=target_p,
+            center_bin, valid, n_states, target_p=target_p, c2=c2,
         )
     dev = fc.device
     N, F = fc.shape
@@ -521,6 +527,7 @@ def assign_flux(fp, fc, pbins, cbins, w, basis_p, basis_c, target_c,
     if w is None or w.dtype not in (torch.float32, torch.float64):
         raise TypeError("w must be a float32 or float64 tensor")
     _check(w, "w", w.dtype, (N,), dev)
+    _check(c2, "c2", torch.float32, (K,), dev, optional=True)
     _check_rows(2 * N)
     _check_states(n_states)
     pidx = torch.empty(N, dtype=torch.int32, device=dev)
@@ -529,7 +536,8 @@ def assign_flux(fp, fc, pbins, cbins, w, basis_p, basis_c, target_c,
     if N == 0:
         return pidx, cidx, fm
     cperm, ckey, rkey = _plan_keys(pbins, cbins, center_bin, valid)
-    c2 = (centers * centers).sum(1).contiguous()
+    if c2 is None:
+        c2 = (centers * centers).sum(1).contiguous()
     with torch.cuda.device(dev):  # launch in the tensors' device context
         err = library().msm_assign_flux(
             _ptr(fp), _ptr(fc), _ptr(basis_p), _ptr(basis_c), _ptr(target_p),

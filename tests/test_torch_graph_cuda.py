@@ -20,7 +20,10 @@ states, the 128-bin step of the ``ntl9_100k.bins128`` cell, under twelve
 orders of its segments. The traced graph of ``tracing.collect()`` gives
 the plain graph's outputs, counts the tail's rounds and the replays whose
 tail took the kernel or the float64 route, and times two intervals that
-fit in the step's device time.
+fit in the step's device time. From 8 bins of 25 centers up the
+``two_transform`` step takes the bin-grouped route (features-only H1, then
+H3): at 128 its ids are an eager H2 launch's bitwise, and the counts and
+launches show the route.
 """
 import functools
 import gc
@@ -109,9 +112,14 @@ def test_entry_replays_its_graph(cuda_device):
         assert torch.equal(g[2], flux) and torch.equal(g[3], res)
 
 
-# The wrappers each tier's step calls (the tail kernel at 252 states)
-TIER_KERNELS = {"two_transform": ["transform_assign", "steady_tail"],
-                "dedup": ["transform_assign_child", "assign_flux", "steady_tail"]}
+# The wrappers each tier's step calls and their launches, by the step's
+# route (the tail kernel at 252 states; SMALL's bank of 10 bins x 25 takes
+# the bin-grouped route, ``entry.grouped_route``)
+TIER_KERNELS = {"two_transform": dict(transform_assign=1, steady_tail=1),
+                "two_transform_grouped": dict(transform_assign_child=2,
+                                              assign_flux=1, steady_tail=1),
+                "dedup": dict(transform_assign_child=1, assign_flux=1,
+                              steady_tail=1)}
 
 
 def _traced_kernels(fn, n):
@@ -135,6 +143,7 @@ def test_a_replay_launches_the_steps_kernels(cuda_device, problems, tier):
     """The trace of replays shows the step's kernels; the counters move
     only for the warm-up's launches (a capture only records)."""
     s = stage_problem(problems[0], tier, cuda_device)
+    launches = TIER_KERNELS[tier + ("_grouped" if s.get("grouped") else "")]
     before = sa.launch_counts()
     hot_step(s, tier)  # warm-up, capture, replay
     torch.cuda.synchronize()
@@ -142,9 +151,9 @@ def test_a_replay_launches_the_steps_kernels(cuda_device, problems, tier):
     traced = _traced_kernels(lambda: hot_step(s, tier), 3)
     after = sa.launch_counts()
     assert {k: mid[k] - before[k] for k in mid} == {
-        k: int(k in TIER_KERNELS[tier]) for k in mid}
+        k: launches.get(k, 0) for k in mid}
     assert after == mid
-    for name in TIER_KERNELS[tier]:
+    for name in launches:
         assert traced[sa.KERNEL_SYMBOLS[name]] > 0
     assert traced["pair_assign_kernel"] == 0
 
@@ -432,3 +441,67 @@ def test_bins128_tail_takes_the_float64_loops_rounds_in_every_order(cuda_device)
         del s, outs
         gc.collect()
     assert len(seen) == 1, seen
+
+
+# ------------------------------------------ the route of the two_transform step
+
+
+@pytest.fixture(scope="module")
+def route_problems():
+    """``make_problem`` seed 0, full size, at 6 bins of 25 centers (below
+    ``entry.GROUPED_MIN_OFF_BIN``) and the bins10 and bins128 cells' 10 and
+    128, by bin count; made only where the tests that use them run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return {n: make_problem(seed=0, n_bins=n) for n in (6, 10, 128)}
+
+
+# The wrappers a two_transform step launches, by the bank's bin count: H2
+# and the tail kernel at 6 bins; two features-only H1 launches and H3 at 10
+# and 128, with the tail kernel at 252 states (the f64 tail at 3,202
+# launches none of the port's kernels)
+ROUTE_LAUNCHES = {6: dict(transform_assign=1, steady_tail=1),
+                  10: dict(transform_assign_child=2, assign_flux=1, steady_tail=1),
+                  128: dict(transform_assign_child=2, assign_flux=1)}
+
+
+@pytest.mark.cuda
+def test_bins128_grouped_replay_equals_an_eager_h2_launch(cuda_device,
+                                                          route_problems):
+    """At 128 bins the step takes the bin-grouped route: its replays give
+    an eager H2 launch's ids bitwise, and with dyadic weights its flux."""
+    s = stage_problem(route_problems[128], "two_transform", cuda_device)
+    assert s["grouped"]
+    rng = np.random.default_rng(7)
+    s["w"].copy_(torch.as_tensor(rng.integers(1, 17, len(s["w"])) / 16.0))
+    ref = sa.transform_assign(
+        s["raw_parent"], s["raw_child"], s["pbins"], s["cbins"], s["w"],
+        s["basis_p"], s["basis_c"], s["target_c"], s["mean"], s["comp"],
+        s["centers"], s["center_bin"], s["valid"], s["n_states"])
+    for o in _runs(lambda: hot_step(s, "two_transform"), 3):
+        assert torch.equal(o["pidx"], ref[0]) and torch.equal(o["cidx"], ref[1])
+        assert torch.equal(o["fm"], ref[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bins", [6, 10, 128])
+def test_the_route_shows_in_counts_and_launches(cuda_device, route_problems,
+                                                n_bins):
+    """``counts["assign_grouped"]`` reads one a traced replay at 10 and 128
+    bins and none at 6; the warm-up's launch counts show two H1 launches
+    and H3 at 10 and 128 bins and H2 alone at 6, and a trace of the
+    replays H3's kernel only where the step is grouped."""
+    grouped = n_bins > 6
+    s = stage_problem(route_problems[n_bins], "two_transform", cuda_device)
+    assert s["grouped"] is grouped
+    before = sa.launch_counts()
+    hot_step(s, "two_transform")  # warm-up, capture, replay
+    torch.cuda.synchronize()
+    mid = sa.launch_counts()
+    assert {k: mid[k] - before[k] for k in mid} == {
+        k: ROUTE_LAUNCHES[n_bins].get(k, 0) for k in mid}
+    traced = _traced_kernels(lambda: hot_step(s, "two_transform"), 3)
+    assert traced["stratified_assign_kernel"] > 0
+    assert (traced["assign_flux_kernel"] > 0) is grouped
+    _outs, col = _traced_runs(lambda: hot_step(s, "two_transform"), 3)
+    assert col.counts["assign_grouped"] == (3 if grouped else 0)

@@ -382,6 +382,26 @@ def test_kernel_checks_refuse_wrong_dtype_layout_and_device():
                        torch.ones(4, dtype=torch.bool), order="sideways")
 
 
+def test_assign_flux_c2_defaults_to_the_centers_norms(problem):
+    """``assign_flux_plain``'s ``c2``: None is ``|c|^2``; with uncentered
+    features ``raw P`` and ``c2adj`` it is plain H2 on the raw rows."""
+    t = to_torch(problem)
+    r = to_torch(_raw(problem, 37, seed=11))
+    S = problem["n_states"]
+    rows = (t["pbins"], t["cbins"], t["w"], t["basis_p"], t["basis_c"],
+            t["target_c"])
+    ref = sa.assign_flux_plain(t["fp"], t["fc"], *rows, *_bank(t), S)
+    c2 = (t["centers"] * t["centers"]).sum(1)
+    got = sa.assign_flux_plain(t["fp"], t["fc"], *rows, *_bank(t), S, c2=c2)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    a2 = sa.c2adj(r["mean"], r["proj"], t["centers"])
+    got = sa.assign_flux_plain(r["raw_p"] @ r["proj"], r["raw_c"] @ r["proj"],
+                               *rows, *_bank(t), S, c2=a2)
+    ref = sa.transform_assign_plain(r["raw_p"], r["raw_c"], *rows, r["mean"],
+                                    r["proj"], *_bank(t), S)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
 def test_launch_counters_count_only_kernel_launches(problem):
     t = to_torch(problem)
     sa.reset_launch_counts()
@@ -433,3 +453,33 @@ def test_cuda_kernels_match_plain(problem, cuda_device):
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert sa.launch_counts() == dict(dict.fromkeys(sa.KERNELS, 1),
                                       steady_tail=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bins,k", [(5, 3), (40, 3)])
+def test_cuda_grouped_scores_are_h2s(n_bins, k, cuda_device):
+    """H1's features-only transform of both raw sets, then H3 on H2's
+    ``c2adj``: bitwise H2's ids and dyadic f64 flux; ``c2=|c|^2`` is H3's
+    default; a ``c2`` of another length is refused."""
+    p = _problem(N=3000, n_bins=n_bins, k=k)
+    r = _raw(p, 37, seed=11)
+    t = to_torch(p, cuda_device)
+    rt = to_torch(r, cuda_device)
+    w64 = t["w"].double()
+    S = p["n_states"]
+    bank = _bank(t)
+    rows = (t["pbins"], t["cbins"], w64, t["basis_p"], t["basis_c"], t["target_c"])
+    ref = sa.transform_assign(rt["raw_p"], rt["raw_c"], *rows, rt["mean"],
+                              rt["proj"], *bank, S)
+    gp, gc = (sa.transform_assign_child(rt[raw], t[bins], None, None, rt["mean"],
+                                        rt["proj"], *bank, S, features_only=True)[1]
+              for raw, bins in (("raw_p", "pbins"), ("raw_c", "cbins")))
+    a2 = sa.c2adj(rt["mean"], rt["proj"], t["centers"]).contiguous()
+    got = sa.assign_flux(gp, gc, *rows, *bank, S, c2=a2)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    c2 = (t["centers"] * t["centers"]).sum(1)
+    got = sa.assign_flux(gp, gc, *rows, *bank, S, c2=c2)
+    ref = sa.assign_flux(gp, gc, *rows, *bank, S)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    with pytest.raises(ValueError):
+        sa.assign_flux(gp, gc, *rows, *bank, S, c2=c2[:-1])

@@ -12,8 +12,17 @@ import jax.numpy as jnp
 from msm_we_tpu.ops import kmeans as jkm
 from msm_we_tpu.parallel import sharded as jsh
 from msm_we_tpu_torch import step as tstep
-from msm_we_tpu_torch.entry import TIERS, entry, hot_step, stage_problem
+from msm_we_tpu_torch.entry import (
+    TIERS,
+    _hot_step,
+    _two_transform,
+    entry,
+    grouped_route,
+    hot_step,
+    stage_problem,
+)
 from msm_we_tpu_torch.ops import kmeans as tkm
+from msm_we_tpu_torch.ops.stratified_assign import transform_assign_plain
 from msm_we_tpu_torch.testing import make_problem
 
 from _torch_parity import assert_ids_match, np_, tt
@@ -85,6 +94,76 @@ def test_hot_step_matches_bench_device_pipeline(small_problem, tier):
         np.testing.assert_allclose(np_(out["pss"]), jpss, rtol=1e-3, atol=1e-6)
         assert float(out["flux"]) == pytest.approx(float(jflux), rel=1e-3)
     assert float(out["residual"]) < 1e-5
+
+
+@pytest.fixture(scope="module")
+def wide_problem():
+    """``make_problem`` binned 128 wide (the ``ntl9_100k.bins128`` cell's
+    widths, raw 900 -> 30) cut to 4,096 segments, with dyadic weights so
+    that every flux cell sum is exact in any order."""
+    p = make_problem(n_segments=4096, n_bins=128, seed=3)
+    p["w"] = np.random.default_rng(5).integers(1, 17, 4096) / 16.0
+    return p
+
+
+@pytest.mark.parametrize("n_bins,k,valid_bins,grouped", [
+    (10, 25, None, True), (128, 25, None, True), (6, 25, None, False),
+    (1, 3200, None, False), (128, 25, 4, False)],
+    ids=["bins10", "bins128", "bins6", "one_bin", "bins128_4_valid"])
+def test_grouped_route_follows_the_bank(n_bins, k, valid_bins, grouped):
+    """The route rule counts the valid centers and the bins that hold them:
+    the bins10 and bins128 cells' banks take the grouped route, 6 bins of
+    25 (the sweep's last point below ``GROUPED_MIN_OFF_BIN``) and one bin of
+    3,200 centers do not, nor a wide bank whose valid centers lie in 4
+    bins."""
+    center_bin = np.repeat(np.arange(n_bins, dtype=np.int32), k)
+    valid = (np.ones(len(center_bin), bool) if valid_bins is None
+             else center_bin < valid_bins)
+    assert grouped_route(center_bin, valid) is grouped
+    assert grouped_route(tt(center_bin), tt(valid)) is grouped
+
+
+def test_stage_problem_records_the_route(small_problem, wide_problem):
+    assert stage_problem(small_problem, "two_transform", "cpu")["grouped"] is False
+    assert stage_problem(wide_problem, "two_transform", "cpu")["grouped"] is True
+    assert "grouped" not in stage_problem(wide_problem, "dedup", "cpu")
+
+
+def test_grouped_route_equals_plain_h2(wide_problem):
+    """The 128-bin step's composed route (features-only transforms, then H3
+    on ``c2adj``) against plain H2 on the same raw rows: equal ids, and the
+    same flux with dyadic weights."""
+    p = wide_problem
+    s = stage_problem(p, "two_transform", "cpu")
+    pidx, cidx, fm = _two_transform(s, True)
+    ref = transform_assign_plain(
+        s["raw_parent"], s["raw_child"], s["pbins"], s["cbins"], s["w"],
+        s["basis_p"], s["basis_c"], s["target_c"], s["mean"], s["comp"],
+        s["centers"], s["center_bin"], s["valid"], s["n_states"])
+    assert torch.equal(pidx, ref[0]) and torch.equal(cidx, ref[1])
+    assert torch.equal(fm, ref[2])
+    # The step takes it (the 3,202-state tail left out: minutes on one thread)
+    out = _hot_step(s, "two_transform", lambda fm, basis, target: (None,) * 4)
+    assert torch.equal(out["pidx"], pidx) and torch.equal(out["cidx"], cidx)
+    assert torch.equal(out["fm"], fm)
+
+
+def test_grouped_step_matches_jax_production_step(wide_problem):
+    """The comparison above on the 128-bin problem, whose step takes the
+    bin-grouped route: ids against the JAX production step's up to
+    near-ties, and its flux with dyadic weights (the 3,202-state tail is
+    left out: minutes on one thread; the f64 tail has tests of its own)."""
+    p = wide_problem
+    s = stage_problem(p, "two_transform", "cpu")
+    assert s["grouped"]
+    fp, fc, jfm, jp, jc = _jax_ids(p, dedup=False)
+    out = _hot_step(s, "two_transform", lambda fm, basis, target: (None,) * 4)
+    K = len(p["centers"])
+    bank = (p["centers"], p["center_bin"], p["valid"])
+    n = assert_ids_match(out["pidx"], jp, fp, p["pbins"], *bank, n_regular=K)
+    n += assert_ids_match(out["cidx"], jc, fc, p["cbins"], *bank, n_regular=K)
+    if n == 0:
+        np.testing.assert_array_equal(np_(out["fm"]), jfm)
 
 
 def test_hot_step_accepts_a_staged_problem(small_problem):
