@@ -32,7 +32,7 @@ Phases, each printing one JSON line:
    are counted in a ``torch.profiler`` trace of its replays (each kernel
    of the graph must show there); the wrappers count the captures'
    warm-ups and the builds. After that count, each tier's line times the
-   graphed step, the eager one (``entry._hot_step_eager``) and the
+   graphed step, the eager one (``entry._hot_step``) and the
    parent's route (the eager launches with the early-exit tail, a host
    read a round) in turns, host clock around a synchronised step, and
    gives their CUDA-event ms, the eager routes' device ms and device
@@ -889,22 +889,21 @@ def _tail_rounds(fm, reps):
             f"{fused_rounds[0.0]} extra squarings at tol = 0, not 16")
 
     def torch_tail(rounds, n=16, tol=1e-6):
-        return lambda: step._steady_state(fm, basis, target, 512, tol, n, rounds)
+        return lambda: step._steady_state(fm, basis, target, 512, tol, n,
+                                          rounds, fm.dtype)
 
     def kernel(tol):
         return lambda: st.steady_tail(fm, basis, target, tol=tol)[:4]
 
     where = torch_tail(step._where_rounds)
-    forms = {"none": (torch_tail(step._where_rounds, 0),) * 2 + (1e-6,),
-             "where": (where, where, 1e-6),
-             "conditional": (where, torch_tail(_graph.conditional_rounds), 1e-6),
-             "conditional_taken": (torch_tail(step._where_rounds, tol=0.0),
-                                   torch_tail(_graph.conditional_rounds, tol=0.0),
-                                   0.0),
-             "fused": (kernel(1e-6), kernel(1e-6), 1e-6),
-             "fused_taken": (kernel(0.0), kernel(0.0), 0.0)}
-    for form, (eager, graphed, tol) in forms.items():
-        cap = _graph.capture(eager, graphed, (), fm.device)
+    forms = {"none": (torch_tail(step._where_rounds, 0), 1e-6),
+             "where": (where, 1e-6),
+             "conditional": (torch_tail(step._rounds), 1e-6),
+             "conditional_taken": (torch_tail(step._rounds, tol=0.0), 0.0),
+             "fused": (kernel(1e-6), 1e-6),
+             "fused_taken": (kernel(0.0), 0.0)}
+    for form, (eager, tol) in forms.items():
+        cap = _graph.capture(eager, (), fm.device)
         got = cap.replay()
         dev_ms, ops, _k = _step_profile(cap.replay, reps)
         line = dict(ms=cuda_ms(cap.replay, reps), device_ms_lower_bound=dev_ms,
@@ -941,7 +940,7 @@ def _f32_tail(fm, basis, target, tol, rounds):
     """The parent's PyTorch tail of an f32 ``fm`` above ``S_MAX``: the
     float64 route's steps in f32, its fixed squarings on rows of ``S``
     floats as the parent laid them out, its extra squarings taken by
-    ``rounds`` (``step._where_rounds`` or ``_graph.conditional_rounds``)."""
+    ``rounds`` (``step._where_rounds`` or ``step._rounds``)."""
     from msm_we_tpu_torch import step
     from msm_we_tpu_torch._device import f64_threshold
 
@@ -999,15 +998,14 @@ def _tail_rounds_f64(fm, reps):
                                f"{ref[0.0][4]} extra squarings at tol = 0")
 
     def route(rounds, tol):
-        return lambda: step._steady_state(fm, basis, target, 512, tol, 16, rounds)
+        return lambda: step._steady_state(fm, basis, target, 512, tol, 16,
+                                          rounds, torch.float64)
 
-    forms = {"where": (route(step._where_rounds, 1e-6),) * 2 + (1e-6,),
-             "conditional": (route(step._where_rounds, 1e-6),
-                             route(_graph.conditional_rounds, 1e-6), 1e-6),
-             "conditional_taken": (route(step._where_rounds, 0.0),
-                                   route(_graph.conditional_rounds, 0.0), 0.0)}
-    for form, (eager, graphed, tol) in forms.items():
-        cap = _graph.capture(eager, graphed, (), fm.device)
+    forms = {"where": (route(step._where_rounds, 1e-6), 1e-6),
+             "conditional": (route(step._rounds, 1e-6), 1e-6),
+             "conditional_taken": (route(step._rounds, 0.0), 0.0)}
+    for form, (fn, tol) in forms.items():
+        cap = _graph.capture(fn, (), fm.device)
         got = cap.replay()
         r = ref[tol]
         dev_ms, ops, _k = _step_profile(cap.replay, reps)
@@ -1024,7 +1022,6 @@ def _tail_rounds_f64(fm, reps):
         res[form] = line
     traced = _graph.capture(
         functools.partial(step.steady_state_from_flux, fm, basis, target),
-        functools.partial(_graph.steady_state_conditional, fm, basis, target),
         (), fm.device, traced=True)
     col = tracing.Collector()
     for _ in range(reps):
@@ -1037,9 +1034,8 @@ def _tail_rounds_f64(fm, reps):
     t_bytes = n * 2 * 8.0 * S * S / HBM_BYTES_PER_S
     f32_where = functools.partial(_f32_tail, fm, basis, target, 1e-6,
                                   step._where_rounds)
-    f32_graph = _graph.capture(
-        f32_where, functools.partial(_f32_tail, fm, basis, target, 1e-6,
-                                     _graph.conditional_rounds), (), fm.device)
+    f32_graph = _graph.capture(functools.partial(
+        _f32_tail, fm, basis, target, 1e-6, step._rounds), (), fm.device)
     res["conditional"].update(
         tail_device_ms=tail_ms[len(tail_ms) // 2],
         traced_rounds=col.counts["tail_rounds"] / reps,
@@ -1140,7 +1136,7 @@ def phase_route(args, summary):
         del sd, h2, grouped
         routes = {False: lambda: entry._two_transform(s, False),
                   True: lambda: entry._two_transform(s, True)}
-        graphs = {g: _graph.capture(fn, fn, (), dev) for g, fn in routes.items()}
+        graphs = {g: _graph.capture(fn, (), dev) for g, fn in routes.items()}
         times = {False: [], True: []}
         for turn in range(5):
             for g in ((False, True) if turn % 2 == 0 else (True, False)):
@@ -1216,18 +1212,24 @@ def phase_tail(args, summary):
         f32_graph_ms=line["conditional"]["f32_graph_ms"])
 
 
-def _early_exit_tail(fm, basis_mask, target_mask):
-    """The parent's tail: the early-exit loop, a host read a round."""
+def _early_exit_step(s, tier):
+    """The parent's route: ``entry._hot_step`` with the early-exit tail, a
+    host read a round."""
+    from msm_we_tpu_torch import entry, step
     from msm_we_tpu_torch.testing import steady_state_early_exit
 
-    return steady_state_early_exit(fm, basis_mask, target_mask)[:4]
+    entry.steady_state_from_flux = lambda *a: steady_state_early_exit(*a)[:4]
+    try:
+        return entry._hot_step(s, tier)
+    finally:
+        entry.steady_state_from_flux = step.steady_state_from_flux
 
 
 def _hot_step_turns(s, tier, reps):
     """The hot step on the staged problem ``s`` by three routes, timed in
     turns (parent, eager, graph, graph, eager, parent; ``reps``
     synchronised steps each): graphed (``hot_step``, a CUDA graph replay),
-    eager (``_hot_step_eager``: launches from Python, the tail's rounds
+    eager (``_hot_step``: launches from Python, the tail's rounds
     guarded by ``torch.where``) and the parent's route (the eager launches
     with the early-exit tail, which reads the residual on the host before
     each extra squaring). Every step's ids must equal the first eager
@@ -1240,19 +1242,14 @@ def _hot_step_turns(s, tier, reps):
     is reported beside. Runs after the main path's counted run."""
     import torch
 
-    from msm_we_tpu_torch.entry import (
-        _hot_step,
-        _hot_step_eager,
-        _state_masks,
-        hot_step,
-    )
+    from msm_we_tpu_torch.entry import _hot_step, _state_masks, hot_step
     from msm_we_tpu_torch.ops import stratified_assign as sa
     from msm_we_tpu_torch.step import steady_state_from_flux
     from msm_we_tpu_torch.testing import flux_order_bound
 
     routes = dict(graph=lambda: hot_step(s, tier),
-                  eager=lambda: _hot_step_eager(s, tier),
-                  parent=lambda: _hot_step(s, tier, _early_exit_tail))
+                  eager=lambda: _hot_step(s, tier),
+                  parent=lambda: _early_exit_step(s, tier))
     for fn in routes.values():
         fn()
     torch.cuda.synchronize()

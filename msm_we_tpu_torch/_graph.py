@@ -1,19 +1,18 @@
 """One CUDA graph a step: the port's counterpart of ``jax.jit`` for the hot
 step and ``entry()``.
 
-``run(eager, graphed, *args)`` calls ``eager(*args)`` when no tensor among
-``args`` lies on a CUDA device: the CPU route has no graph. Otherwise the
-first call with a new key warms up on a side stream with ``eager(*args)``
-(that builds the kernel library and cuBLAS's workspace, neither of which
-may happen inside a capture), captures ``graphed(*args)`` into a
+``run(fn, *args)`` calls ``fn(*args)`` when no tensor among ``args`` lies
+on a CUDA device: the CPU route has no graph. Otherwise the first call
+with a new key warms up on a side stream with ``fn(*args)``, outside any
+capture (that builds the kernel library and cuBLAS's workspace, neither of
+which may happen inside a capture), captures ``fn(*args)`` into a
 ``torch.cuda.CUDAGraph`` on the same stream, and replays it; later calls
-with the same key only replay. ``graphed`` is ``eager`` with
-:func:`steady_state_conditional` as its steady-state tail: the same kernels
-at the same shapes (one kernel for the tail of a CUDA f32 flux matrix of at
-most ``ops.steady_tail.S_MAX`` states, else the tail's extra squarings as
-conditional nodes, in float64 for a larger f32 matrix).
+with the same key only replay. ``fn`` may take another form inside the
+capture by asking :func:`capturing` (the steady-state tail of ``step.py``
+takes its extra rounds as conditional nodes there, as ``torch.where``
+rounds outside one): the same kernels at the same shapes.
 
-* The key is ``graphed`` itself plus every leaf of ``args``: a tensor by
+* The key is ``fn`` itself plus every leaf of ``args``: a tensor by
   ``(data_ptr, shape, stride, dtype, device)``, anything else by value. A
   replay reads the inputs' memory as it is at replay time, so new values
   written into the same tensors are seen, as by a jitted function of
@@ -24,60 +23,63 @@ conditional nodes, in float64 for a larger f32 matrix).
 * The outputs are copied out after every replay, so the next replay does
   not overwrite what a caller holds.
 * The kernel wrappers count the launches of the warm-up; a capture only
-  records launches and counts none (``ops.stratified_assign``), so a
+  records launches and counts none (``ops._ext._count_launch``), so a
   replay's launches show only in a trace of it (``torch.profiler``).
 * A capture that fails raises; nothing falls back to eager launches.
 
+Conditional nodes. A conditional node exists only in a graph: inside a
+capture ``with conditional(flag):`` makes the work of its block an IF node
+of the graph, captured into a graph of its own on a second stream and run
+at replay only where the 0-dim bool tensor ``flag`` holds
+(``csrc/graph_if.cu``), the counterpart of the JAX package's
+``lax.while_loop``.
+
 Tracing (``tracing.py``). While a ``tracing.collect()`` block is open or a
 ``torch.profiler`` records, a run opens three spans: ``graph.lookup``
-(from :func:`run`'s entry: the device check, flattening, key, finding or
+(from :func:`run`'s entry: flattening, the device check, key, finding or
 capturing the entry, and under ``collect()`` the collector's read of the
 last traced replay), ``graph.launch`` (``graph.replay()`` in its device
-context) and ``graph.copy_out`` (the output clones and the unflatten).
-Under ``collect()`` the step replays its traced graph, a capture of its
-own (``graph_key(..., traced=True)``): the same kernels, with timing
-events recorded as event nodes at the graph's start, where the
-steady-state tail begins and at its end, and a device ``int32`` counter of
-the tail's extra rounds (the tail kernel adds the rounds it took; on the
-PyTorch route each conditional round adds one). The block's collector reads
-each replay's two intervals, ``device_ms["assign_flux"]`` and
-``device_ms["tail"]``, before the next traced replay overwrites them, and
-counts the replays whose tail took the kernel, ``counts["tail_fused"]``,
-those whose tail took the float64 route (an f32 flux matrix of more
-than ``S_MAX`` states, ``ops.steady_tail.tail_dtype``),
-``counts["tail_f64"]``, and those whose ``two_transform`` assignment
-scored bin-grouped (``entry.grouped_route``), ``counts["assign_grouped"]``;
-it reads the counter, ``counts["tail_rounds"]``, once when the block
-closes.
-With neither on, a run opens no span: it reads one count and the
-profiler's flag in :func:`run` and again in ``GraphCache.run``.
+context) and ``graph.copy_out`` (the output clones and the unflatten); on
+the CPU route only ``graph.lookup`` opens. With neither on, a run opens no
+span: it reads one count and the profiler's flag once. Under ``collect()``
+the step replays its traced graph, a capture of its own
+(``graph_key(..., traced=True)``). Three hooks let the step describe
+itself to it; outside a capture they do nothing:
 
-Why two forms of the PyTorch tail (the route above ``S_MAX`` states, for
-other dtypes and on the CPU): a conditional node exists only in a graph, and
-the eager and CPU routes may not read the device, so they keep every round
-and let a ``torch.where`` on the flag discard it
-(``step.steady_state_from_flux``). Inside a capture ``with
-conditional(flag):`` makes the work of its block an IF node of the graph:
-captured into a graph of its own on a second stream and run at replay
-only where the 0-dim bool tensor ``flag`` holds (``csrc/graph_if.cu``), the
-counterpart of the JAX package's ``lax.while_loop``.
+* :func:`mark` ``(name)`` records an event node where it is called; the
+  device interval from there to the next mark, or to the graph's end, goes
+  to ``device_ms[name]`` once a traced replay;
+* :func:`count` ``(name, n)`` adds ``n`` to ``counts[name]`` once a traced
+  replay (a route the capture took);
+* :func:`counter` ``(name)`` is the traced capture's one 0-dim ``int32``
+  device counter, which the graph's kernels add to (``None`` outside a
+  traced capture), zeroed at the block's first replay and read into
+  ``counts[name]`` when the block closes. It is allocated before the
+  capture: a tensor allocated inside one may share memory with an
+  intermediate that an earlier node of the graph writes at every replay.
+
+The block's collector reads each replay's intervals and counts before the
+next traced replay overwrites them. The hot step names them:
+``device_ms["assign_flux"]`` and ``device_ms["tail"]`` (``entry.py``,
+``step.steady_state_from_flux``), ``counts["tail_fused"]``,
+``counts["tail_f64"]``, ``counts["tail_rounds"]`` (the tail) and
+``counts["assign_grouped"]`` (``entry.py``).
 """
 from __future__ import annotations
 
 import threading
 import weakref
 from collections import OrderedDict
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import torch
 from torch.utils import _pytree as pytree
 
-from . import step, tracing
-from .ops import steady_tail
+from . import tracing
 from .ops._ext import check, library
 
-__all__ = ["CACHE_SIZE", "GraphCache", "assign_grouped", "conditional",
-           "conditional_rounds", "graph_key", "run", "steady_state_conditional"]
+__all__ = ["CACHE_SIZE", "GraphCache", "capture", "capturing", "conditional",
+           "count", "counter", "graph_key", "mark", "run"]
 
 CACHE_SIZE = 4
 _local = threading.local()  # .capture: the _Capture under way in this thread
@@ -97,27 +99,24 @@ def graph_key(fn, leaves, traced=False):
     return tuple(key)
 
 
-class _Captured:
-    """A captured graph and its static outputs (``bodies``: the graphs of
-    its conditional nodes, kept with it). A traced graph also holds its
-    three timing events (``marks``: start, tail, end), its round counter
-    (``rounds``), whether its tail is the tail kernel (``fused``), whether
-    it runs in float64 for an f32 flux matrix (``f64``) and whether its
-    assignment scored bin-grouped (``grouped``), and is a traced source of
-    ``tracing.Collector``."""
+class _Capture:
+    """A step as :func:`capture` captures it, then its graph. While the
+    capture runs, the hooks add to it: ``bodies`` (the graphs of its
+    conditional nodes, kept with it), ``counts`` (name -> per replay), and
+    in a traced capture ``marks`` (``(name, event)`` in graph order) and
+    the name of its ``counter``. A traced capture, with its ``end`` event,
+    is a traced source of ``tracing.Collector``."""
 
-    def __init__(self, graph, device, outputs, spec, bodies, marks=None,
-                 rounds=None, fused=False, f64=False, grouped=False):
-        self.graph = graph
+    def __init__(self, device, traced=False):
         self.device = device
-        self.outputs = outputs
-        self.spec = spec
-        self.bodies = bodies
-        self.marks = marks
-        self.rounds = rounds
-        self.fused = fused
-        self.f64 = f64
-        self.grouped = grouped
+        self.traced = traced
+        self.stream = self.body_stream = None
+        self.bodies = []
+        self.marks = []
+        self.end = None
+        self.counts = {}
+        self.counter = self.counter_name = None
+        self.graph = self.outputs = self.spec = None
 
     def launch(self):
         with torch.cuda.device(self.device):
@@ -134,47 +133,63 @@ class _Captured:
 
     def open(self, col):
         with torch.cuda.device(self.device):
-            self.rounds.zero_()
+            self.counter.zero_()
 
     def read(self, col):
-        start, tail, end = self.marks
-        end.synchronize()
-        col.device_ms.setdefault("assign_flux", []).append(start.elapsed_time(tail))
-        col.device_ms.setdefault("tail", []).append(tail.elapsed_time(end))
-        col.counts["tail_fused"] = col.counts.get("tail_fused", 0) + int(self.fused)
-        col.counts["tail_f64"] = col.counts.get("tail_f64", 0) + int(self.f64)
-        col.counts["assign_grouped"] = (col.counts.get("assign_grouped", 0)
-                                        + int(self.grouped))
+        self.end.synchronize()
+        ends = [e for _name, e in self.marks[1:]] + [self.end]
+        for (name, start), end in zip(self.marks, ends):
+            col.device_ms.setdefault(name, []).append(start.elapsed_time(end))
+        for name, n in self.counts.items():
+            col.counts[name] = col.counts.get(name, 0) + n
 
     def close(self, col):
-        col.counts["tail_rounds"] = col.counts.get("tail_rounds", 0) + int(self.rounds)
+        name = self.counter_name
+        if name is not None:
+            col.counts[name] = col.counts.get(name, 0) + int(self.counter)
 
 
-class _Capture:
-    """What :func:`conditional` and the tail need of the capture under way
-    (``marks`` and ``rounds``: a traced capture's events and counter;
-    ``fused``: set where the tail took the tail kernel; ``f64``: where it
-    took the float64 route; ``grouped``: where the assignment scored
-    bin-grouped)."""
-
-    def __init__(self, stream, marks=None, rounds=None):
-        self.stream = stream
-        self.body_stream = torch.cuda.Stream()
-        self.bodies = []
-        self.marks = marks
-        self.rounds = rounds
-        self.fused = False
-        self.f64 = False
-        self.grouped = False
+def _under_way():
+    return getattr(_local, "capture", None)
 
 
-def assign_grouped():
-    """Marks the capture under way, if any, as a step whose assignment
-    scored bin-grouped (``entry.grouped_route``): its traced replays count
-    in ``counts["assign_grouped"]``."""
-    cap = getattr(_local, "capture", None)
+def capturing():
+    """Whether a capture by :func:`capture` is under way in this thread
+    (host state: no device read)."""
+    return _under_way() is not None
+
+
+def _event():
+    return torch.cuda.Event(enable_timing=True, external=True)
+
+
+def mark(name):
+    """In a traced capture: an event node here, opening the interval
+    ``device_ms[name]`` (to the next mark or the graph's end)."""
+    cap = _under_way()
+    if cap is not None and cap.traced:
+        cap.marks.append((name, _event()))
+        cap.marks[-1][1].record(cap.stream)
+
+
+def count(name, n):
+    """In a capture: each traced replay adds ``n`` to ``counts[name]``."""
+    cap = _under_way()
     if cap is not None:
-        cap.grouped = True
+        cap.counts[name] = cap.counts.get(name, 0) + int(n)
+
+
+def counter(name):
+    """In a traced capture: its 0-dim ``int32`` device counter, read into
+    ``counts[name]``; else ``None``. A capture holds one counter, under one
+    name."""
+    cap = _under_way()
+    if cap is None or cap.counter is None:
+        return None
+    if cap.counter_name not in (None, name):
+        raise ValueError(f"the capture counts {cap.counter_name!r}, not {name!r}")
+    cap.counter_name = name
+    return cap.counter
 
 
 def _check_precision():
@@ -195,7 +210,7 @@ def conditional(flag):
     bodies of the capture share (their captures follow one another), and
     may read and write only tensors that outlive it. At replay the block
     runs where ``flag`` holds and launches nothing where it does not."""
-    cap = getattr(_local, "capture", None)
+    cap = _under_way()
     if cap is None:
         raise RuntimeError("conditional() needs a capture by _graph.capture")
     body = torch.cuda.CUDAGraph(keep_graph=True)
@@ -211,95 +226,46 @@ def conditional(flag):
                                      cap.stream.cuda_stream), "conditional node")
 
 
-def conditional_rounds(Tn, p, residual, T, tol, n_rounds):
-    """``step._where_rounds`` inside a capture: each round is a conditional
-    node on ``residual > tol`` (so a round after convergence launches no
-    more than the flag's kernels) and writes its result into the tail's own
-    ``Tn``, ``p`` and ``residual``, whose addresses the rest of the graph
-    reads. A traced capture's rounds also add one to its counter."""
-    cap = getattr(_local, "capture", None)
-    counter = cap.rounds if cap is not None else None
-    for _ in range(n_rounds):
-        with conditional(residual > tol):
-            if counter is not None:
-                counter.add_(1)
-            Tc = step._square(Tn)
-            pc, rc = step._stationary(Tc, T)
-            Tn.copy_(Tc)
-            p.copy_(pc)
-            residual.copy_(rc)
-    return Tn, p, residual
-
-
-def steady_state_conditional(fm, basis_mask, target_mask, n_iters=512,
-                             tol=1e-6, max_extra_squarings=16):
-    """``step.steady_state_from_flux`` for a capture by :func:`capture`: the
-    tail kernel where ``ops.steady_tail.uses_kernel`` takes it (one kernel
-    node, its loop inside; a traced capture hands it the round counter),
-    else the extra squarings as conditional nodes
-    (:func:`conditional_rounds`), in ``ops.steady_tail.tail_dtype``: the
-    same result as the eager route, and a round after convergence costs no
-    squaring. A traced capture records its tail event here, right before
-    the tail's first launch."""
-    cap = getattr(_local, "capture", None)
-    if cap is not None and cap.marks is not None:
-        cap.marks[1].record(cap.stream)
-    if steady_tail.uses_kernel(fm.device, fm.dtype, fm.shape[0]):
-        if cap is not None:
-            cap.fused = True
-        return steady_tail.steady_tail(
-            fm, basis_mask, target_mask, n_iters, tol, max_extra_squarings,
-            counter=None if cap is None else cap.rounds)[:4]
-    if cap is not None:
-        cap.f64 = steady_tail.tail_dtype(fm.dtype, fm.shape[0]) != fm.dtype
-    return step._steady_state(fm, basis_mask, target_mask, n_iters, tol,
-                              max_extra_squarings, conditional_rounds)
-
-
-def capture(eager, graphed, args, device, traced=False):
-    """Warm ``eager(*args)`` up on a side stream of ``device``, then capture
-    ``graphed(*args)`` into a CUDA graph on that stream. Returns the
-    captured step; ``traced`` adds the timing events and the round counter
-    (the module's docstring: ``graphed`` must end in
-    :func:`steady_state_conditional`, which marks where its tail starts)."""
+def capture(fn, args, device, traced=False):
+    """Warm ``fn(*args)`` up on a side stream of ``device``, then capture
+    it into a CUDA graph on that stream. Returns the captured step;
+    ``traced`` adds the counter, what the hooks record and an event at its
+    end."""
     _check_precision()
+    cap = _Capture(device, traced)
     with torch.cuda.device(device):
-        stream = torch.cuda.Stream()
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
-            eager(*args)
-        torch.cuda.current_stream().wait_stream(stream)
-        graph = torch.cuda.CUDAGraph()
-        marks = rounds = None
+        cap.stream = torch.cuda.Stream()
+        cap.stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(cap.stream):
+            fn(*args)
+        torch.cuda.current_stream().wait_stream(cap.stream)
+        cap.body_stream = torch.cuda.Stream()
         if traced:
-            marks = [torch.cuda.Event(enable_timing=True, external=True)
-                     for _ in range(3)]
-            rounds = torch.zeros((), dtype=torch.int32, device=device)
-        cap = _local.capture = _Capture(stream, marks, rounds)
+            cap.counter = torch.zeros((), dtype=torch.int32, device=device)
+        cap.graph = torch.cuda.CUDAGraph()
+        _local.capture = cap
         try:
-            with torch.cuda.graph(graph, stream=stream):
+            with torch.cuda.graph(cap.graph, stream=cap.stream):
+                out = fn(*args)
                 if traced:
-                    marks[0].record(stream)
-                out = graphed(*args)
-                if traced:
-                    marks[2].record(stream)
+                    cap.end = _event()
+                    cap.end.record(cap.stream)
         finally:
             _local.capture = None
-    outputs, spec = pytree.tree_flatten(out)
-    return _Captured(graph, device, outputs, spec, cap.bodies, marks, rounds,
-                     cap.fused, cap.f64, cap.grouped)
+    cap.outputs, cap.spec = pytree.tree_flatten(out)
+    return cap
 
 
 class GraphCache:
-    """Captured steps by :func:`graph_key`, at most ``CACHE_SIZE`` of them.
-    ``capture(eager, graphed, args, device, traced)`` makes an entry with a
-    ``replay()`` method, and with ``traced=True`` a traced entry, a source
-    of ``tracing.Collector``; with tracing on, an entry's ``launch()`` and
-    ``copy_out()`` run in turn instead (:func:`capture`; a test may pass
-    another)."""
+    """Captured steps by :func:`graph_key`, at most ``CACHE_SIZE`` of them,
+    for tensors on devices of ``device_type``. ``capture(fn, args, device,
+    traced)`` makes an entry with ``launch()`` and ``copy_out()``, and with
+    ``traced=True`` a traced entry, a source of ``tracing.Collector``
+    (:func:`capture`; a test may pass another)."""
 
-    def __init__(self, capture=capture):
+    def __init__(self, capture=capture, device_type="cuda"):
         self._capture = capture
+        self._device_type = device_type
         self._entries = OrderedDict()  # key -> (entry, finalizers)
         self._lock = threading.RLock()
 
@@ -309,47 +275,39 @@ class GraphCache:
     def __contains__(self, key):
         return key in self._entries
 
-    def run(self, eager, graphed, *args):
-        """Replay the entry of ``graphed`` over ``args``, capturing it first
-        where there is none (on the device of the first tensor); with
-        tracing on, under the module's spans."""
-        if tracing.active():
-            return self.run_spanned(eager, graphed, args)
-        return self._lookup(eager, graphed, args, False).replay()
-
-    def run_spanned(self, eager, graphed, args, check_device=False):
-        """:meth:`run` under the spans ``graph.lookup`` (from this call to
-        the entry; under ``collect()`` the entry is the traced graph, and
-        the collector reads what the last traced replay left first),
-        ``graph.launch`` and ``graph.copy_out``. With ``check_device``,
-        ``eager(*args)`` runs instead where no tensor among ``args`` lies on
-        a CUDA device (:func:`run`'s check, inside the lookup's span)."""
+    def run(self, fn, *args):
+        """``fn(*args)`` where no tensor among ``args`` lies on a device of
+        the cache's type, else a replay of the entry of ``fn`` over
+        ``args``, captured first where there is none (on the device of the
+        first tensor); with tracing on, under the module's spans (under
+        ``collect()`` the entry is the traced graph, and the collector
+        reads what the last traced replay left first)."""
+        span = tracing.span if tracing.active() else nullcontext
         col = tracing.collector()
-        with tracing.span("graph.lookup"):
+        with span("graph.lookup"):
+            leaves = pytree.tree_leaves(args)
+            tensors = [x for x in leaves if isinstance(x, torch.Tensor)]
             entry = None
-            if not check_device or _on_cuda(args):
-                entry = self._lookup(eager, graphed, args, col is not None)
+            if any(t.device.type == self._device_type for t in tensors):
+                entry = self._lookup(fn, args, leaves, tensors, col is not None)
                 if col is not None:
                     col.using(entry)
         if entry is None:
-            return eager(*args)
-        with tracing.span("graph.launch"):
+            return fn(*args)
+        with span("graph.launch"):
             entry.launch()
-        with tracing.span("graph.copy_out"):
+        with span("graph.copy_out"):
             return entry.copy_out()
 
-    def _lookup(self, eager, graphed, args, traced):
-        leaves = pytree.tree_leaves(args)
-        tensors = [x for x in leaves if isinstance(x, torch.Tensor)]
-        key = graph_key(graphed, leaves, traced)
+    def _lookup(self, fn, args, leaves, tensors, traced):
+        key = graph_key(fn, leaves, traced)
         with self._lock:
             item = self._entries.get(key)
             if item is not None:
                 self._entries.move_to_end(key)
         if item is not None:
             return item[0]
-        entry = self._capture(eager, graphed, args, tensors[0].device,
-                              traced=traced)
+        entry = self._capture(fn, args, tensors[0].device, traced=traced)
         self._insert(key, entry, tensors)
         return entry
 
@@ -379,19 +337,8 @@ class GraphCache:
 _CACHE = GraphCache()
 
 
-def _on_cuda(args):
-    return any(isinstance(x, torch.Tensor) and x.is_cuda
-               for x in pytree.tree_leaves(args))
-
-
-def run(eager, graphed, *args):
-    """``eager(*args)`` where no tensor among ``args`` lies on a CUDA
-    device, else a replay of the CUDA graph of ``graphed(*args)`` (captured
-    at the first call with a new key). With tracing on, the span
-    ``graph.lookup`` starts here (on the CPU route it holds the check
-    alone)."""
-    if tracing.active():
-        return _CACHE.run_spanned(eager, graphed, args, check_device=True)
-    if not _on_cuda(args):
-        return eager(*args)
-    return _CACHE.run(eager, graphed, *args)
+def run(fn, *args):
+    """``fn(*args)`` where no tensor among ``args`` lies on a CUDA device,
+    else a replay of the CUDA graph of ``fn(*args)`` (captured at the first
+    call with a new key): ``GraphCache.run`` of the module's cache."""
+    return _CACHE.run(fn, *args)

@@ -74,25 +74,22 @@ def entry(device="cuda"):
     p = tiny_stratified_problem(n_rows=64, d=8, n_bins=4, k=4, seed=0)
     n_states = p["n_states"]
 
-    def forward(tail):
-        def step(fp, fc, pbins, cbins, basis_p, basis_c, target_c, w,
-                 centers, center_bin, valid):
-            fm, _pidx, _cidx = _discretize_and_flux(
-                fp, fc, pbins, cbins, basis_p, basis_c, target_c, w,
-                centers, center_bin, valid, n_states,
-            )
-            basis_mask, target_mask = _state_masks(n_states, fm.device)
-            _T, pss, flux, residual = tail(fm, basis_mask, target_mask)
-            return fm, pss, flux, residual
-        return step
-
-    eager = forward(steady_state_from_flux)
-    graphed = forward(_graph.steady_state_conditional)
+    def step(fp, fc, pbins, cbins, basis_p, basis_c, target_c, w, centers,
+             center_bin, valid):
+        _graph.mark("assign_flux")
+        fm, _pidx, _cidx = _discretize_and_flux(
+            fp, fc, pbins, cbins, basis_p, basis_c, target_c, w, centers,
+            center_bin, valid, n_states,
+        )
+        basis_mask, target_mask = _state_masks(n_states, fm.device)
+        _T, pss, flux, residual = steady_state_from_flux(fm, basis_mask,
+                                                         target_mask)
+        return fm, pss, flux, residual
 
     def hamsm_forward(fp, fc, pbins, cbins, basis_p, basis_c, target_c, w,
                       centers, center_bin, valid):
-        return _graph.run(eager, graphed, fp, fc, pbins, cbins, basis_p,
-                          basis_c, target_c, w, centers, center_bin, valid)
+        return _graph.run(step, fp, fc, pbins, cbins, basis_p, basis_c,
+                          target_c, w, centers, center_bin, valid)
 
     args = tuple(to_device(p[k], dev, _DTYPES[k]) for k in _ROW_KEYS)
     return hamsm_forward, args
@@ -180,31 +177,24 @@ def hot_step(problem, tier="two_transform", device="cuda"):
     and ``cidx`` (device tensors; nothing is synchronised).
     """
     s = problem if "tier" in problem else stage_problem(problem, tier, device)
-    return _graph.run(_hot_step_eager, _hot_step_graphed, s, tier)
+    return _graph.run(_hot_step, s, tier)
 
 
-def _hot_step_eager(s, tier):
-    """:func:`hot_step` on a staged problem as launches from Python, with
-    no graph: the CPU route, the warm-up of a capture, and on the card the
-    comparison for its replays."""
-    return _hot_step(s, tier, steady_state_from_flux)
-
-
-def _hot_step_graphed(s, tier):
-    """:func:`hot_step` as a CUDA graph captures it: the tail's extra
-    squarings are conditional nodes."""
-    return _hot_step(s, tier, _graph.steady_state_conditional)
-
-
-def _hot_step(s, tier, tail):
-    """The hot step on a staged problem with ``tail(fm, basis_mask,
-    target_mask) -> (T, p, flux, residual)`` as its steady state."""
+def _hot_step(s, tier):
+    """:func:`hot_step` on a staged problem: the function ``_graph.run``
+    warms up, captures and replays. Called directly it runs as launches
+    from Python with no graph, as on the CPU: the comparison for the
+    replays on the card. In a traced capture it marks
+    ``device_ms["assign_flux"]`` and counts ``assign_grouped``."""
     if s["tier"] != tier:
         raise ValueError(f"problem was staged for tier {s['tier']!r}, not {tier!r}")
+    _graph.mark("assign_flux")
     S = s["n_states"]
     bank = (s["centers"], s["center_bin"], s["valid"])
+    grouped = tier == "two_transform" and s["grouped"]
+    _graph.count("assign_grouped", grouped)
     if tier == "two_transform":
-        pidx, cidx, fm = _two_transform(s, s["grouped"])
+        pidx, cidx, fm = _two_transform(s, grouped)
     else:
         _none, g = transform_assign_child(
             s["raw_ext"], s["bins_ext"], None, None, s["mean"], s["comp"],
@@ -219,7 +209,8 @@ def _hot_step(s, tier, tail):
             s["basis_c"], s["target_c"], *bank, S,
         )
     basis_mask, target_mask = _state_masks(S, fm.device)
-    _T, pss, flux, residual = tail(fm, basis_mask, target_mask)
+    _T, pss, flux, residual = steady_state_from_flux(fm, basis_mask,
+                                                     target_mask)
     return dict(fm=fm, pss=pss, flux=flux, residual=residual, pidx=pidx,
                 cidx=cidx)
 
@@ -236,7 +227,6 @@ def _two_transform(s, grouped):
     if not grouped:
         return transform_assign(s["raw_parent"], s["raw_child"], *rows,
                                 s["mean"], s["comp"], *bank, S)
-    _graph.assign_grouped()
     _none, gp = transform_assign_child(
         s["raw_parent"], s["pbins"], None, None, s["mean"], s["comp"], *bank,
         S, features_only=True)

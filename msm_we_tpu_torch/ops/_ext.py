@@ -20,6 +20,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -138,3 +140,16 @@ def check(err, name):
     """Raise if an entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def _count_launch(wrapper, scores=False):
+    """Count one launch of ``wrapper``'s kernel in ``wrapper.launches``
+    (``scores``: in ``wrapper.score_launches`` too, H4's score form). A
+    call while the current stream is being captured into a CUDA graph
+    (``_graph.py``) launches nothing, it records the launch, so it counts
+    nothing: a graph's launches show in a trace of its replays."""
+    if torch.cuda.is_current_stream_capturing():
+        return
+    wrapper.launches += 1
+    if scores:
+        wrapper.score_launches += 1

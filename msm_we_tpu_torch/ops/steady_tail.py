@@ -14,8 +14,7 @@ in other orders, and the kernel renormalises by a row's reciprocal), not
 bitwise.
 
 The route follows what the input shows, by two rules that
-``step.steady_state_from_flux`` (eagerly) and
-``_graph.steady_state_conditional`` (inside a capture) both ask.
+``step.steady_state_from_flux`` asks once each, inside a capture and out.
 :func:`uses_kernel`: a CUDA f32 flux matrix of at most ``S_MAX`` states
 takes the kernel. Larger matrices, where the squarings are real matrix
 products, keep the PyTorch tail (``torch.where`` rounds eagerly, conditional
@@ -35,10 +34,12 @@ The wrapper's launches are counted with the other kernels'
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .._device import f64_threshold
-from ._ext import check, library
+from ._ext import _count_launch, check, library
 
 __all__ = ["S_MAX", "MAX_STATES", "steady_tail", "tail_dtype", "uses_kernel"]
 
@@ -51,6 +52,12 @@ S_MAX = 640
 MAX_STATES = 2048
 TILE = 32  # kTN: the columns of a squaring's output tile
 CHUNK = 64  # kChunk: the values of k a squaring stages, the scratch's padding
+
+
+def _fixed_squarings(n_iters):
+    """The squarings before the tail's first convergence test:
+    ``ceil(log2(n_iters))``, at least one."""
+    return max(int(math.ceil(math.log2(max(n_iters, 2)))), 1)
 
 
 def uses_kernel(device, dtype, n_states):
@@ -104,9 +111,6 @@ def steady_tail(fm, basis_mask, target_mask, n_iters=512, tol=1e-6,
     rounds)``. ``counter``, a 0-dim ``int32`` CUDA tensor, gains the rounds
     taken (the traced graph's ``tail_rounds``). Raises on a CPU tensor,
     another dtype or layout, or more than ``MAX_STATES`` states."""
-    from ..step import _fixed_squarings
-    from .stratified_assign import _count_launch
-
     S = _check_inputs(fm, basis_mask, target_mask)
     if counter is not None and (counter.device != fm.device
                                 or counter.dtype != torch.int32

@@ -52,7 +52,7 @@ from __future__ import annotations
 
 import torch
 
-from ._ext import check, library
+from ._ext import _count_launch, check, library
 from .kmeans import masked_scores
 from .steady_tail import steady_tail
 
@@ -90,20 +90,34 @@ def _argmin(X, bins, centers, center_bin, valid, c2=None):
     ).to(torch.int32)
 
 
-def _overrides(pidx, cidx, basis_p, basis_c, target_c, n_states, target_p,
-               predict_order):
-    from ..step import _apply_overrides
+def _apply_overrides(pidx, cidx, basis_p, basis_c, target_c, n_states,
+                     target_p=None, predict_order=False):
+    """Basis/target overrides. ``predict_order`` (the reference's predict,
+    used for dtrajs): target is checked last, so target wins rows inside
+    both regions. Flux order (the reference's flux build): end-in-target,
+    then start-in-target (``target_p``), then basis for both ends, so
+    basis wins."""
+    B, T = n_states - 2, n_states - 1
+    if predict_order:
+        pidx = _where(basis_p, B, pidx)
+        cidx = _where(basis_c, B, cidx)
+        pidx = _where(target_p, T, pidx)
+        cidx = _where(target_c, T, cidx)
+    else:
+        cidx = _where(target_c, T, cidx)
+        pidx = _where(target_p, T, pidx)
+        pidx = _where(basis_p, B, pidx)
+        cidx = _where(basis_c, B, cidx)
+    return pidx.to(torch.int32), cidx.to(torch.int32)
 
-    return _apply_overrides(
-        pidx, cidx, basis_p, basis_c, target_c, n_states,
-        target_p=target_p, predict_order=predict_order,
-    )
 
-
-def _flux(pidx, cidx, w, n_states):
-    from ..step import _scatter_flux
-
-    return _scatter_flux(pidx, cidx, w, n_states)
+def _scatter_flux(pidx, cidx, w, n_states):
+    """(S, S) flux of ``w`` at (parent, child), accumulated in the dtype of
+    ``w``: f64 weights give the facade's parity-grade flux (WE weights span
+    hundreds of decades; an f32 scatter would flush small ones)."""
+    flat = pidx.to(torch.int64) * n_states + cidx.to(torch.int64)
+    fm = torch.zeros(n_states * n_states, dtype=w.dtype, device=w.device)
+    return fm.index_add_(0, flat, w).reshape(n_states, n_states)
 
 
 # ------------------------------------------------------------------ plain
@@ -136,9 +150,9 @@ def transform_assign_plain(raw_p, raw_c, pbins, cbins, w, basis_p, basis_c,
     a = c2adj(mean, proj, centers)
     pidx = _argmin(raw_p @ proj, pbins, centers, center_bin, valid, c2=a)
     cidx = _argmin(raw_c @ proj, cbins, centers, center_bin, valid, c2=a)
-    pidx, cidx = _overrides(pidx, cidx, basis_p, basis_c, target_c, n_states,
-                            target_p, predict_order=False)
-    fm = _flux(pidx, cidx, w, n_states) if with_flux else None
+    pidx, cidx = _apply_overrides(pidx, cidx, basis_p, basis_c, target_c,
+                                  n_states, target_p=target_p)
+    fm = _scatter_flux(pidx, cidx, w, n_states) if with_flux else None
     return pidx, cidx, fm
 
 
@@ -149,9 +163,9 @@ def assign_flux_plain(fp, fc, pbins, cbins, w, basis_p, basis_c, target_c,
     ``|c|^2``), flux-order overrides, flux. Returns ``(pidx, cidx, fm)``."""
     pidx = _argmin(fp, pbins, centers, center_bin, valid, c2=c2)
     cidx = _argmin(fc, cbins, centers, center_bin, valid, c2=c2)
-    pidx, cidx = _overrides(pidx, cidx, basis_p, basis_c, target_c, n_states,
-                            target_p, predict_order=False)
-    return pidx, cidx, _flux(pidx, cidx, w, n_states)
+    pidx, cidx = _apply_overrides(pidx, cidx, basis_p, basis_c, target_c,
+                                  n_states, target_p=target_p)
+    return pidx, cidx, _scatter_flux(pidx, cidx, w, n_states)
 
 
 def _argmin_scores(X, bins, centers, center_bin, valid):
@@ -197,9 +211,9 @@ def pair_assign_plain(fp, fc, pbins, cbins, centers, center_bin, valid,
                 cidx = _where(target_c, T, cidx)
                 cidx = _where(basis_c, B, cidx)
         else:
-            pidx, cidx = _overrides(
-                pidx, cidx, basis_p, basis_c, target_c, n_states, target_p,
-                predict_order=order == "predict",
+            pidx, cidx = _apply_overrides(
+                pidx, cidx, basis_p, basis_c, target_c, n_states,
+                target_p=target_p, predict_order=order == "predict",
             )
     return cidx if pidx is None else (pidx, cidx)
 
@@ -650,14 +664,3 @@ def reset_launch_counts():
 def launch_counts():
     return {name: fn.launches for name, fn in KERNELS.items()}
 
-
-def _count_launch(wrapper, scores=False):
-    """Count one launch of ``wrapper``'s kernel (``scores``: H4's score
-    form too). A call while the current stream is being captured into a
-    CUDA graph (``_graph.py``) launches nothing, it records the launch, so
-    it counts nothing: a graph's launches show in a trace of its replays."""
-    if torch.cuda.is_current_stream_capturing():
-        return
-    wrapper.launches += 1
-    if scores:
-        pair_assign.score_launches += 1

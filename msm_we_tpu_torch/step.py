@@ -9,20 +9,27 @@ Counterpart of the single-device part of ``msm_we_tpu/parallel/sharded.py``
 ``parallel/sharded.py`` runs these over a ('data', 'model') mesh of ranks
 and adds the argmin combine and the all-reduce. The assignment and flux go
 through the kernels of ``ops/stratified_assign.py`` on CUDA tensors and
-their plain versions on CPU tensors.
+their plain versions on CPU tensors; ``_apply_overrides`` and
+``_scatter_flux`` live there, beside the plain versions that use them.
+The steady-state tail decides its route here (:func:`steady_state_from_flux`).
 
 The center bank must be compact (valid centers first, in global-id order):
 the row index of the winning center is its global cluster id.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
+from . import _graph
 from ._device import f64_threshold
 from .ops import steady_tail
-from .ops.stratified_assign import assign_flux, pair_assign
+from .ops.steady_tail import _fixed_squarings
+from .ops.stratified_assign import (
+    _apply_overrides,
+    _scatter_flux,
+    assign_flux,
+    pair_assign,
+)
 
 __all__ = [
     "fused_step_single",
@@ -31,40 +38,6 @@ __all__ = [
     "single_assign_predict",
     "cluster_stats",
 ]
-
-
-def _apply_overrides(pidx, cidx, basis_p, basis_c, target_c, n_states,
-                     target_p=None, predict_order=False):
-    """Basis/target overrides. ``predict_order`` (the reference's predict,
-    used for dtrajs): target is checked last, so target wins rows inside
-    both regions. Flux order (the reference's flux build): end-in-target,
-    then start-in-target (``target_p``), then basis for both ends, so
-    basis wins."""
-    B, T = n_states - 2, n_states - 1
-
-    def where(mask, value, idx):
-        return idx if mask is None else torch.where(mask, value, idx)
-
-    if predict_order:
-        pidx = where(basis_p, B, pidx)
-        cidx = where(basis_c, B, cidx)
-        pidx = where(target_p, T, pidx)
-        cidx = where(target_c, T, cidx)
-    else:
-        cidx = where(target_c, T, cidx)
-        pidx = where(target_p, T, pidx)
-        pidx = where(basis_p, B, pidx)
-        cidx = where(basis_c, B, cidx)
-    return pidx.to(torch.int32), cidx.to(torch.int32)
-
-
-def _scatter_flux(pidx, cidx, w, n_states):
-    """(S, S) flux of ``w`` at (parent, child), accumulated in the dtype of
-    ``w``: f64 weights give the facade's parity-grade flux (WE weights span
-    hundreds of decades; an f32 scatter would flush small ones)."""
-    flat = pidx.to(torch.int64) * n_states + cidx.to(torch.int64)
-    fm = torch.zeros(n_states * n_states, dtype=w.dtype, device=w.device)
-    return fm.index_add_(0, flat, w).reshape(n_states, n_states)
 
 
 def _raw_pair_assign(fp, fc, pbins, cbins, centers, center_bin, valid):
@@ -226,13 +199,16 @@ def _stationary(Tn, T):
     return p, (p @ T - p).abs().sum()
 
 
-def _fixed_squarings(n_iters):
-    return max(int(math.ceil(math.log2(max(n_iters, 2)))), 1)
-
-
 def _target_flux(T, p, target_mask):
     return (torch.where(target_mask[None, :], T, torch.zeros_like(T))
             * p[:, None]).sum()
+
+
+def _round(Tn, T):
+    """One extra squaring: ``Tn`` squared, its stationary vector and
+    residual."""
+    Tc = _square(Tn)
+    return (Tc, *_stationary(Tc, T))
 
 
 def _where_rounds(Tn, p, residual, T, tol, n_rounds):
@@ -241,23 +217,47 @@ def _where_rounds(Tn, p, residual, T, tol, n_rounds):
     changes nothing (the early-exit loop's result, no host read)."""
     for _ in range(n_rounds):
         go = residual > tol
-        Tc = _square(Tn)
-        pc, rc = _stationary(Tc, T)
+        Tc, pc, rc = _round(Tn, T)
         Tn = torch.where(go, Tc, Tn)
         p = torch.where(go, pc, p)
         residual = torch.where(go, rc, residual)
     return Tn, p, residual
 
 
+def _conditional_rounds(Tn, p, residual, T, tol, n_rounds):
+    """:func:`_where_rounds` inside a capture by ``_graph``: each round is a
+    conditional node on ``residual > tol`` (so a round after convergence
+    launches no more than the flag's kernels) and writes its result into
+    the tail's own ``Tn``, ``p`` and ``residual``, whose addresses the rest
+    of the graph reads. In a traced capture each round taken adds one to
+    the counter ``tail_rounds``."""
+    rounds = _graph.counter("tail_rounds")
+    for _ in range(n_rounds):
+        with _graph.conditional(residual > tol):
+            if rounds is not None:
+                rounds.add_(1)
+            Tc, pc, rc = _round(Tn, T)
+            Tn.copy_(Tc)
+            p.copy_(pc)
+            residual.copy_(rc)
+    return Tn, p, residual
+
+
+def _rounds(Tn, p, residual, T, tol, n_rounds):
+    """The PyTorch tail's extra rounds: conditional nodes inside a capture
+    by ``_graph`` (``_graph.capturing()``, host state), else guarded
+    rounds."""
+    rounds = _conditional_rounds if _graph.capturing() else _where_rounds
+    return rounds(Tn, p, residual, T, tol, n_rounds)
+
+
 def _steady_state(fm, basis_mask, target_mask, n_iters, tol,
-                  max_extra_squarings, rounds):
-    """The tail with its extra squarings taken by ``rounds`` (the signature
-    of :func:`_where_rounds`; ``_graph.conditional_rounds`` inside a
-    capture), in ``ops.steady_tail.tail_dtype``: float64 for an f32 ``fm``
-    of more than ``S_MAX`` states, else ``fm``'s dtype. ``tol`` becomes the
-    largest number of that dtype not above it, so the device comparison
-    decides as a host read would. The outputs are in ``fm``'s dtype."""
-    dtype = steady_tail.tail_dtype(fm.dtype, fm.shape[0])
+                  max_extra_squarings, rounds, dtype):
+    """The PyTorch tail in ``dtype``, its extra squarings taken by
+    ``rounds`` (:func:`_rounds`, :func:`_where_rounds` or
+    :func:`_conditional_rounds`). ``tol`` becomes the largest number of
+    ``dtype`` not above it, so the device comparison decides as a host read
+    would. The outputs are in ``fm``'s dtype."""
     tol = f64_threshold(tol, dtype)
     T = _aligned(_transition_matrix(fm.to(dtype), basis_mask, target_mask))
     Tn = T
@@ -278,19 +278,31 @@ def steady_state_from_flux(fm, basis_mask, target_mask, n_iters=512,
     rounds, each taken only while the residual ``||p T - p||_1`` exceeds
     ``tol`` (the JAX package's ``while_loop``). The check stays on the
     device, with no host read, and the result is the early-exit loop's (the
-    first round whose residual is ``<= tol``, else the last). A CUDA f32
-    ``fm`` of at most ``ops.steady_tail.S_MAX`` states takes one kernel
-    (``ops.steady_tail.steady_tail``) that runs the whole tail, its loop
-    included. Otherwise every round computes its candidate and keeps it
-    only while the 0-dim flag ``residual > tol`` holds, and a CUDA graph of
-    a step takes the rounds as conditional nodes instead
-    (``_graph.steady_state_conditional``); an f32 ``fm`` of more than
-    ``S_MAX`` states takes that tail in float64, on the CPU and on CUDA
-    (``ops.steady_tail.tail_dtype``), where its f32 residual would sit at
-    its rounding floor. Returns ``(T, p, flux, residual)``.
+    first round whose residual is ``<= tol``, else the last).
+
+    The route is decided here, from what the input shows. A CUDA f32 ``fm``
+    of at most ``ops.steady_tail.S_MAX`` states takes one kernel
+    (``ops.steady_tail.uses_kernel``, ``steady_tail``) that runs the whole
+    tail, its loop included. Otherwise the PyTorch tail runs in
+    ``ops.steady_tail.tail_dtype`` (float64 for an f32 ``fm`` of more than
+    ``S_MAX`` states, on the CPU and on CUDA, where its f32 residual would
+    sit at its rounding floor), its rounds taken by :func:`_rounds`: inside
+    a capture by ``_graph`` conditional nodes (:func:`_conditional_rounds`),
+    elsewhere each round computes its candidate and keeps it only while
+    the 0-dim flag ``residual > tol`` holds (:func:`_where_rounds`). In a
+    traced capture the tail marks ``device_ms["tail"]`` where it starts,
+    counts its route (``tail_fused``, ``tail_f64``) and its rounds
+    (``tail_rounds``). Returns ``(T, p, flux, residual)``.
     """
-    if steady_tail.uses_kernel(fm.device, fm.dtype, fm.shape[0]):
-        return steady_tail.steady_tail(fm, basis_mask, target_mask, n_iters,
-                                       tol, max_extra_squarings)[:4]
+    S = fm.shape[0]
+    kernel = steady_tail.uses_kernel(fm.device, fm.dtype, S)
+    dtype = steady_tail.tail_dtype(fm.dtype, S)
+    _graph.mark("tail")
+    _graph.count("tail_fused", kernel)
+    _graph.count("tail_f64", dtype != fm.dtype)
+    if kernel:
+        return steady_tail.steady_tail(
+            fm, basis_mask, target_mask, n_iters, tol, max_extra_squarings,
+            counter=_graph.counter("tail_rounds"))[:4]
     return _steady_state(fm, basis_mask, target_mask, n_iters, tol,
-                         max_extra_squarings, _where_rounds)
+                         max_extra_squarings, _rounds, dtype)

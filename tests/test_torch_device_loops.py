@@ -321,23 +321,23 @@ class _FakeCapture:
     def __init__(self):
         self.n = 0
 
-    def __call__(self, eager, graphed, args, device, traced=False):
-        assert eager is _step_eager and graphed is _step and not traced
+    def __call__(self, fn, args, device, traced=False):
+        assert fn is _step and not traced
+        assert device == torch.device("cpu") and args[-1] in TIERS
         self.n += 1
         n = self.n
 
         class Entry:
-            def replay(self):
+            def launch(self):
+                pass
+
+            def copy_out(self):
                 return n
 
         return Entry()
 
 
 def _step(a, b, tier):
-    return a + b
-
-
-def _step_eager(a, b, tier):
     return a + b
 
 
@@ -361,28 +361,28 @@ def test_graph_key_reads_identity_layout_and_values():
 
 def test_graph_cache_captures_once_a_key_and_keeps_four():
     fake = _FakeCapture()
-    cache = _graph.GraphCache(capture=fake)
+    cache = _graph.GraphCache(capture=fake, device_type="cpu")
     inputs = [(torch.zeros(2), torch.zeros(2)) for _ in range(5)]
     for rep in range(2):  # the second pass only replays
         for x in inputs[:4]:
-            cache.run(_step_eager, _step, *x, "dedup")
+            cache.run(_step, *x, "dedup")
     assert fake.n == 4 and len(cache) == 4
     # Writing new values into a key's tensors keeps its graph
     inputs[0][0].fill_(3.0)
-    assert cache.run(_step_eager, _step, *inputs[0], "dedup") == 1
-    cache.run(_step_eager, _step, *inputs[4], "dedup")  # evicts the least recent: #2
+    assert cache.run(_step, *inputs[0], "dedup") == 1
+    cache.run(_step, *inputs[4], "dedup")  # evicts the least recent: #2
     assert fake.n == 5 and len(cache) == 4
-    assert cache.run(_step_eager, _step, *inputs[0], "dedup") == 1
-    assert cache.run(_step_eager, _step, *inputs[1], "dedup") == 6  # captured anew
-    assert cache.run(_step_eager, _step, *inputs[0], "two_transform") == 7
+    assert cache.run(_step, *inputs[0], "dedup") == 1
+    assert cache.run(_step, *inputs[1], "dedup") == 6  # captured anew
+    assert cache.run(_step, *inputs[0], "two_transform") == 7
 
 
 def test_graph_cache_drops_a_graph_whose_input_is_freed():
     fake = _FakeCapture()
-    cache = _graph.GraphCache(capture=fake)
+    cache = _graph.GraphCache(capture=fake, device_type="cpu")
     keep, freed = torch.zeros(3), torch.zeros(3)
-    cache.run(_step_eager, _step, keep, freed, "dedup")
-    cache.run(_step_eager, _step, keep, keep, "dedup")
+    cache.run(_step, keep, freed, "dedup")
+    cache.run(_step, keep, keep, "dedup")
     assert len(cache) == 2
     key = _graph.graph_key(_step, [keep, freed, "dedup"])
     del freed
@@ -390,13 +390,14 @@ def test_graph_cache_drops_a_graph_whose_input_is_freed():
     assert len(cache) == 1 and key not in cache
 
 
-def test_run_is_eager_on_cpu_tensors():
-    def never(*_a):
-        raise AssertionError("the graphed form ran on CPU tensors")
+def test_run_is_eager_on_cpu_tensors(monkeypatch):
+    def never(*_a, **_k):
+        raise AssertionError("a graph was captured for CPU tensors")
 
+    monkeypatch.setattr(_graph._CACHE, "_capture", never)
     before = len(_graph._CACHE)
     a = torch.arange(3.0)
-    assert torch.equal(_graph.run(_step_eager, never, a, a, "dedup"), 2 * a)
+    assert torch.equal(_graph.run(_step, a, a, "dedup"), 2 * a)
     assert len(_graph._CACHE) == before
 
 
@@ -417,6 +418,41 @@ def test_a_launch_counts_only_outside_a_capture(capturing, monkeypatch):
     sa.pair_assign.launches -= n
     sa.pair_assign.score_launches -= n
     sa.assign_flux.launches -= n
+
+
+def test_the_capture_hooks_do_nothing_outside_a_capture():
+    """Outside a capture the step's hooks record nothing and give no
+    counter; inside an untraced one ``count`` adds up and the traced-only
+    hooks still record nothing; a traced one has one counter, one name."""
+    assert not _graph.capturing()
+    _graph.mark("tail")
+    _graph.count("tail_fused", True)
+    assert _graph.counter("tail_rounds") is None
+    cap = _graph._Capture("cpu")
+    _graph._local.capture = cap
+    try:
+        assert _graph.capturing()
+        _graph.mark("tail")
+        _graph.count("tail_fused", True)
+        _graph.count("tail_fused", 2)
+        _graph.count("tail_f64", False)
+        assert _graph.counter("tail_rounds") is None
+    finally:
+        _graph._local.capture = None
+    assert cap.counts == dict(tail_fused=3, tail_f64=0)
+    assert cap.marks == [] and cap.counter_name is None
+    # A traced capture hands out its one counter, made before the capture
+    traced = _graph._Capture("cpu", traced=True)
+    traced.counter = torch.zeros((), dtype=torch.int32)
+    _graph._local.capture = traced
+    try:
+        assert _graph.counter("tail_rounds") is traced.counter
+        assert _graph.counter("tail_rounds") is traced.counter
+        with pytest.raises(ValueError, match="counts 'tail_rounds'"):
+            _graph.counter("other")
+    finally:
+        _graph._local.capture = None
+    assert traced.counter_name == "tail_rounds"
 
 
 def test_conditional_needs_a_capture():
@@ -445,17 +481,16 @@ def test_conditional_rounds_take_the_early_exit_loops_rounds(name,
             for t, v in zip(state, saved):
                 t.copy_(v)
 
-    real_rounds = _graph.conditional_rounds
-
     def rounds(Tn, p, residual, T, tol, n_rounds):
         state[:] = [Tn, p, residual]
-        return real_rounds(Tn, p, residual, T, tol, n_rounds)
+        return tstep._conditional_rounds(Tn, p, residual, T, tol, n_rounds)
 
     state = []
     monkeypatch.setattr(_graph, "conditional", run_where)
     fm = torch.tensor(CASES[name][0]())
     basis, target = _masks(fm.shape[0])
-    got = tstep._steady_state(fm, basis, target, 512, 1e-6, 16, rounds)
+    got = tstep._steady_state(fm, basis, target, 512, 1e-6, 16, rounds,
+                              fm.dtype)
     *ref, n_extra = steady_state_early_exit(fm, basis, target)
     assert len(taken) == 16 and sum(taken) == n_extra == CASES[name][1]
     for g, r in zip(got, ref):
@@ -480,18 +515,17 @@ def test_conditional_rounds_take_the_float64_loops_rounds(name, monkeypatch):
             for t, v in zip(state, saved):
                 t.copy_(v)
 
-    real_rounds = _graph.conditional_rounds
-
     def rounds(Tn, p, residual, T, tol, n_rounds):
         assert Tn.dtype == p.dtype == residual.dtype == torch.float64
         state[:] = [Tn, p, residual]
-        return real_rounds(Tn, p, residual, T, tol, n_rounds)
+        return tstep._conditional_rounds(Tn, p, residual, T, tol, n_rounds)
 
     monkeypatch.setattr(_graph, "conditional", run_where)
     make, rounds64, _rounds32 = WIDE_CASES[name]
     fm = torch.tensor(make())
     basis, target = _masks(fm.shape[0])
-    got = tstep._steady_state(fm, basis, target, 512, 1e-6, 16, rounds)
+    got = tstep._steady_state(fm, basis, target, 512, 1e-6, 16, rounds,
+                              st.tail_dtype(fm.dtype, fm.shape[0]))
     *ref, n_extra = steady_state_early_exit(fm.double(), basis, target)
     assert len(taken) == 16 and sum(taken) == n_extra == rounds64
     for g, r in zip(got, ref):

@@ -36,8 +36,7 @@ from msm_we_tpu_torch import _graph, tracing
 from msm_we_tpu_torch import step as tstep
 from msm_we_tpu_torch.entry import (
     TIERS,
-    _hot_step_eager,
-    _hot_step_graphed,
+    _hot_step,
     _state_masks,
     entry,
     hot_step,
@@ -93,7 +92,7 @@ def _runs(fn, n=8):
 @pytest.mark.parametrize("tier", TIERS)
 def test_replay_equals_the_eager_step(cuda_device, problems, tier):
     s = stage_problem(problems[0], tier, cuda_device)
-    eager = _runs(lambda: _hot_step_eager(s, tier))
+    eager = _runs(lambda: _hot_step(s, tier))
     graphed = _runs(lambda: hot_step(s, tier))
     _assert_like_eager(graphed, eager, s["w"])
 
@@ -163,12 +162,12 @@ def test_a_replay_launches_the_steps_kernels(cuda_device, problems, tier):
 def test_a_second_staged_problem_captures_its_own_graph(cuda_device, problems,
                                                         tier):
     a, b = (stage_problem(p, tier, cuda_device) for p in problems)
-    ka = _graph.graph_key(_hot_step_graphed, _graph.pytree.tree_leaves((a, tier)))
-    kb = _graph.graph_key(_hot_step_graphed, _graph.pytree.tree_leaves((b, tier)))
+    ka = _graph.graph_key(_hot_step, _graph.pytree.tree_leaves((a, tier)))
+    kb = _graph.graph_key(_hot_step, _graph.pytree.tree_leaves((b, tier)))
     ga, gb = hot_step(a, tier), hot_step(b, tier)
     assert ka in _graph._CACHE and kb in _graph._CACHE
-    _assert_like_eager([ga], _runs(lambda: _hot_step_eager(a, tier)), a["w"])
-    _assert_like_eager([gb], _runs(lambda: _hot_step_eager(b, tier)), b["w"])
+    _assert_like_eager([ga], _runs(lambda: _hot_step(a, tier)), a["w"])
+    _assert_like_eager([gb], _runs(lambda: _hot_step(b, tier)), b["w"])
     assert not torch.equal(ga["cidx"], gb["cidx"])
     del a
     gc.collect()
@@ -188,7 +187,7 @@ def test_a_replay_sees_inputs_overwritten_in_place(cuda_device, problems, tier):
     graphed = _runs(lambda: hot_step(s, tier))
     assert len(_graph._CACHE) == n  # no new capture
     assert not torch.equal(graphed[0]["cidx"], first["cidx"])
-    _assert_like_eager(graphed, _runs(lambda: _hot_step_eager(other, tier)),
+    _assert_like_eager(graphed, _runs(lambda: _hot_step(other, tier)),
                        other["w"])
 
 
@@ -240,7 +239,8 @@ def _eager_rounds(fm, basis, target, tol=1e-6):
             Tn, p, residual = tstep._where_rounds(Tn, p, residual, T, tol, 1)
         return Tn, p, residual
 
-    out = tstep._steady_state(fm, basis, target, 512, tol, 16, rounds)
+    out = tstep._steady_state(fm, basis, target, 512, tol, 16, rounds,
+                              st.tail_dtype(fm.dtype, fm.shape[0]))
     return out, sum(int(f) for f in flags)
 
 
@@ -265,8 +265,7 @@ def test_graphed_f64_tail_equals_the_float64_loop(cuda_device, make, rounds):
     assert kept == n_extra and _within_f32_rounding(eager, ref)
     before = sa.launch_counts()["steady_tail"]
     outs, col = _traced_runs(lambda: _graph.run(
-        tstep.steady_state_from_flux, _graph.steady_state_conditional, fm,
-        basis, target), 3)
+        tstep.steady_state_from_flux, fm, basis, target), 3)
     assert sa.launch_counts()["steady_tail"] == before
     for got in outs:
         assert _within_f32_rounding(got, ref)
@@ -296,8 +295,7 @@ def test_graphed_tail_equals_the_early_exit_loop(cuda_device, make, rounds):
         assert 0 < n_extra < 16
     eager = tstep.steady_state_from_flux(fm, basis, target)
     for _ in range(2):
-        got = _graph.run(tstep.steady_state_from_flux,
-                         _graph.steady_state_conditional, fm, basis, target)
+        got = _graph.run(tstep.steady_state_from_flux, fm, basis, target)
         for g, e in zip(got, eager):
             assert torch.equal(g, e)
         excess = tail_order_excess(got, ref)
@@ -360,9 +358,8 @@ def test_tail_rounds_read_16_a_step_at_tol_0(cuda_device, problem0):
     fm = hot_step(s, "two_transform")["fm"]
     basis, target = _state_masks(s["n_states"], cuda_device)
     assert steady_state_early_exit(fm, basis, target, tol=0.0)[-1] == 16
-    eager = functools.partial(tstep.steady_state_from_flux, tol=0.0)
-    graphed = functools.partial(_graph.steady_state_conditional, tol=0.0)
-    _outs, col = _traced_runs(lambda: _graph.run(eager, graphed, fm, basis, target), 3)
+    tail = functools.partial(tstep.steady_state_from_flux, tol=0.0)
+    _outs, col = _traced_runs(lambda: _graph.run(tail, fm, basis, target), 3)
     assert col.counts["tail_rounds"] == 48
 
 
@@ -433,7 +430,7 @@ def test_bins128_tail_takes_the_float64_loops_rounds_in_every_order(cuda_device)
             assert _within_f32_rounding((o["pss"], o["flux"]), ref[1:3]), seed
         assert col.counts["tail_rounds"] == sum(want), (seed, want)
         assert col.counts["tail_f64"] == 2 and col.counts["tail_fused"] == 0
-        fm = _hot_step_eager(s, "two_transform")["fm"]
+        fm = _hot_step(s, "two_transform")["fm"]
         *ref, n_extra = steady_state_early_exit(fm.double(), basis, target)
         eager, kept = _eager_rounds(fm, basis, target)
         assert kept == n_extra and _within_f32_rounding(eager, ref), seed

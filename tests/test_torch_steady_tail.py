@@ -5,8 +5,8 @@ only on the card: ``tests/test_torch_steady_tail_cuda.py``.
 * the route: CUDA, f32 and at most ``S_MAX`` states take the kernel, and
   nothing else does; an f32 matrix of more than ``S_MAX`` states takes the
   PyTorch tail in float64, on the CPU and on CUDA alike, its outputs in
-  f32; the eager and the graphed tail ask the same rules, and a traced
-  graph counts the replays whose tail took the float64 route;
+  f32; the tail asks the rules once, outside a capture and inside one
+  (emulated on the CPU), and a capture counts its route;
 * a 128-bin hot step on the CPU (642 states: the float64 route) passes the
   ``ntl9_100k.bins128`` cell's check (``benchmark/reference/hot_step.py``)
   within the cell's limits;
@@ -15,14 +15,14 @@ only on the card: ``tests/test_torch_steady_tail_cuda.py``.
 * the bounds the card tests hold the kernel to pass between two summation
   orders of the plain tail, and fail a residual moved or decided wrongly;
 * the tail's launches are counted with the other kernels';
-* the traced graph counts the replays whose tail took the kernel;
+* the traced graph counts the replays whose tail took the kernel or the
+  float64 route;
 * the kernel source carries its note.
 """
 import json
 import sys
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -93,16 +93,58 @@ class _FakeKernel:
         self.calls.append(dict(n_iters=n_iters, tol=tol,
                                max_extra=max_extra_squarings, counter=counter))
         return (*tstep._steady_state(fm, basis, target, n_iters, tol,
-                                     max_extra_squarings, tstep._where_rounds),
+                                     max_extra_squarings, tstep._where_rounds,
+                                     fm.dtype),
                 torch.zeros((), dtype=torch.int32))
+
+
+@contextmanager
+def _capture_on_cpu(monkeypatch):
+    """What ``step.steady_state_from_flux`` sees of a capture by ``_graph``
+    (an untraced one), on CPU tensors: each conditional node of
+    ``step._conditional_rounds`` runs its block where its flag holds and
+    undoes it where it does not, as a replay does. Yields the capture,
+    whose ``counts`` the tail fills."""
+    cap = _graph._Capture("cpu")
+    state = []
+
+    @contextmanager
+    def run_where(flag):
+        saved = None if bool(flag) else [t.clone() for t in state]
+        yield
+        if saved is not None:
+            for t, v in zip(state, saved):
+                t.copy_(v)
+
+    real_rounds = tstep._conditional_rounds
+
+    def rounds(Tn, p, residual, T, tol, n_rounds):
+        state[:] = [Tn, p, residual]
+        return real_rounds(Tn, p, residual, T, tol, n_rounds)
+
+    monkeypatch.setattr(_graph, "conditional", run_where)
+    monkeypatch.setattr(tstep, "_conditional_rounds", rounds)
+    monkeypatch.setattr(_graph._local, "capture", cap, raising=False)
+    try:
+        yield cap
+    finally:
+        _graph._local.capture = None
+
+
+def _within(form, monkeypatch):
+    """``form`` "eager": outside a capture; "graphed": inside one."""
+    return (_capture_on_cpu(monkeypatch) if form == "graphed"
+            else nullcontext())
 
 
 @pytest.mark.parametrize("form", ["eager", "graphed"])
 @pytest.mark.parametrize("kernel", [True, False])
 def test_the_tail_asks_the_route(form, kernel, monkeypatch):
-    """Both forms of the tail launch the kernel exactly where the route
-    says so, with the caller's settings and, outside a capture, no
-    counter; elsewhere the PyTorch tail runs unchanged."""
+    """Outside a capture ("eager") and inside one ("graphed") the tail asks
+    the route once and launches the kernel exactly where it says so, with
+    the caller's settings and, outside a traced capture, no counter;
+    elsewhere the PyTorch tail runs unchanged. A capture counts the route
+    it took."""
     fake = _FakeKernel()
     asked = []
 
@@ -114,60 +156,27 @@ def test_the_tail_asks_the_route(form, kernel, monkeypatch):
     monkeypatch.setattr(st, "steady_tail", fake)
     fm = torch.tensor(CASES["round_5"][0]())
     basis, target = _masks(fm.shape[0])
-    fn = (tstep.steady_state_from_flux if form == "eager"
-          else _graph.steady_state_conditional)
-    if form == "graphed" and not kernel:
-        with pytest.raises(RuntimeError, match="needs a capture"):
-            fn(fm, basis, target, tol=1e-5)
-        return
-    got = fn(fm, basis, target, n_iters=256, tol=1e-5)
+    with _within(form, monkeypatch) as cap:
+        got = tstep.steady_state_from_flux(fm, basis, target, n_iters=256,
+                                           tol=1e-5)
     assert asked == [("cpu", torch.float32, 12)]
     ref = tstep._steady_state(fm, basis, target, 256, 1e-5, 16,
-                              tstep._where_rounds)
+                              tstep._where_rounds, fm.dtype)
     assert len(got) == 4
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
     assert fake.calls == ([dict(n_iters=256, tol=1e-5, max_extra=16,
                                 counter=None)] if kernel else [])
-
-
-@contextmanager
-def _capture_on_cpu(monkeypatch):
-    """What ``_graph.steady_state_conditional`` sees of a capture, on CPU
-    tensors: each conditional node runs its block where its flag holds and
-    undoes it where it does not, as a replay does."""
-    cap = SimpleNamespace(marks=None, rounds=None, fused=False, f64=False)
-    state = []
-
-    @contextmanager
-    def run_where(flag):
-        saved = None if bool(flag) else [t.clone() for t in state]
-        yield
-        if saved is not None:
-            for t, v in zip(state, saved):
-                t.copy_(v)
-
-    real_rounds = _graph.conditional_rounds
-
-    def rounds(Tn, p, residual, T, tol, n_rounds):
-        state[:] = [Tn, p, residual]
-        return real_rounds(Tn, p, residual, T, tol, n_rounds)
-
-    monkeypatch.setattr(_graph, "conditional", run_where)
-    monkeypatch.setattr(_graph, "conditional_rounds", rounds)
-    monkeypatch.setattr(_graph._local, "capture", cap, raising=False)
-    try:
-        yield cap
-    finally:
-        _graph._local.capture = None
+    if cap is not None:
+        assert cap.counts == dict(tail_fused=int(kernel), tail_f64=0)
 
 
 @pytest.mark.parametrize("form", ["eager", "graphed"])
 def test_both_forms_ask_the_dtype_rule(form, monkeypatch):
-    """The eager and the graphed tail take their dtype from
+    """Outside a capture and inside one the tail takes its dtype from
     ``tail_dtype`` alone: told float64 for a small f32 matrix, both run the
-    float64 early-exit loop's tail and return it in f32, and a capture is
-    marked as the float64 route."""
+    float64 early-exit loop's tail and return it in f32, and a capture
+    counts the float64 route."""
     asked = []
 
     def rule(dtype, S):
@@ -178,13 +187,11 @@ def test_both_forms_ask_the_dtype_rule(form, monkeypatch):
     fm = torch.tensor(CASES["round_5"][0]())
     basis, target = _masks(fm.shape[0])
     *ref, n_extra = steady_state_early_exit(fm.double(), basis, target)
-    if form == "eager":
+    with _within(form, monkeypatch) as cap:
         got = tstep.steady_state_from_flux(fm, basis, target)
-    else:
-        with _capture_on_cpu(monkeypatch) as cap:
-            got = _graph.steady_state_conditional(fm, basis, target)
-        assert cap.f64 and not cap.fused
-    assert set(asked) == {(torch.float32, 12)}
+    if cap is not None:
+        assert cap.counts == dict(tail_fused=0, tail_f64=1)
+    assert asked == [(torch.float32, 12)]
     for g, r in zip(got, ref):
         assert g.dtype == torch.float32 and torch.equal(g, r.float())
 
@@ -200,15 +207,15 @@ CAPTURES = {
 @pytest.mark.parametrize("name", list(CAPTURES))
 def test_a_capture_is_marked_where_its_tail_takes_the_f64_route(name,
                                                                 monkeypatch):
-    """``steady_state_conditional`` marks the capture (and so the traced
-    graph's ``tail_f64``) only for an f32 matrix above ``S_MAX``, and
-    returns the eager route's outputs in the input's dtype."""
+    """Inside a capture the tail counts the float64 route (and so the
+    traced graph's ``tail_f64``) only for an f32 matrix above ``S_MAX``,
+    and returns the eager route's outputs in the input's dtype."""
     make, dtype, f64 = CAPTURES[name]
     fm = torch.tensor(make(), dtype=dtype)
     basis, target = _masks(fm.shape[0])
     with _capture_on_cpu(monkeypatch) as cap:
-        got = _graph.steady_state_conditional(fm, basis, target)
-    assert cap.f64 is f64 and not cap.fused
+        got = tstep.steady_state_from_flux(fm, basis, target)
+    assert cap.counts == dict(tail_fused=0, tail_f64=int(f64))
     for g, e in zip(got, tstep.steady_state_from_flux(fm, basis, target)):
         assert g.dtype == dtype and torch.equal(g, e)
 
@@ -257,7 +264,7 @@ def test_the_plain_version_is_the_pytorch_tail_with_its_rounds(name, tol):
     fm = torch.tensor(CASES[name][0]())
     basis, target = _masks(fm.shape[0])
     got = tstep._steady_state(fm, basis, target, 512, tol, 16,
-                              tstep._where_rounds)
+                              tstep._where_rounds, fm.dtype)
     *ref, n_extra = steady_state_early_exit(fm, basis, target, tol=tol)
     assert n_extra == (16 if tol == 0.0 else CASES[name][1])
     for g, r, e in zip(got, ref, tstep.steady_state_from_flux(
@@ -359,33 +366,25 @@ class _Event:
         return 0.25
 
 
-@pytest.mark.parametrize("fused", [True, False])
-def test_the_traced_graph_counts_fused_replays(fused):
-    entry = _graph._Captured(None, -1, [], None, [],  # -1: no device
-                             marks=[_Event(), _Event(), _Event()],
-                             rounds=torch.zeros((), dtype=torch.int32),
-                             fused=fused)
+@pytest.mark.parametrize("on", [True, False])
+@pytest.mark.parametrize("name", ["tail_fused", "tail_f64"])
+def test_the_traced_graph_counts_its_routes_replays(name, on):
+    """A traced graph whose capture counted ``name`` (the tail's kernel or
+    its float64 route) adds it once a replay, the other route's count
+    none, beside the tail's interval and its round counter."""
+    entry = _graph._Capture(-1, traced=True)  # -1: no device
+    entry.marks, entry.end = [("tail", _Event())], _Event()
+    entry.counts = dict(tail_fused=0, tail_f64=0)
+    entry.counts[name] = int(on)
+    entry.counter = torch.ones((), dtype=torch.int32)
+    entry.counter_name = "tail_rounds"
     col = tracing.Collector()
     for _ in range(3):
         col.using(entry)
     col.close()
-    assert col.counts["tail_fused"] == (3 if fused else 0)
-    assert col.device_ms["tail"] == [0.25] * 3
-
-
-@pytest.mark.parametrize("f64", [True, False])
-def test_the_traced_graph_counts_f64_replays(f64):
-    entry = _graph._Captured(None, -1, [], None, [],  # -1: no device
-                             marks=[_Event(), _Event(), _Event()],
-                             rounds=torch.zeros((), dtype=torch.int32),
-                             f64=f64)
-    col = tracing.Collector()
-    for _ in range(3):
-        col.using(entry)
-    col.close()
-    assert col.counts["tail_f64"] == (3 if f64 else 0)
-    assert col.counts["tail_fused"] == 0
-    assert col.counts["tail_rounds"] == 0
+    other = "tail_f64" if name == "tail_fused" else "tail_fused"
+    assert col.counts == {name: 3 * on, other: 0, "tail_rounds": 0}
+    assert col.device_ms == {"tail": [0.25] * 3}
 
 
 @pytest.mark.parametrize("dtype,S", [(torch.float64, 642), (torch.float32, 642),

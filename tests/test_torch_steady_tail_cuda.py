@@ -135,7 +135,7 @@ def test_the_eager_tail_launches_the_kernel_up_to_s_max(cuda_device, S):
         assert launched == 1
     else:
         ref = tstep._steady_state(fm, basis, target, 512, 1e-6, 16,
-                                  tstep._where_rounds)
+                                  tstep._where_rounds, torch.float64)
         assert launched == 0
         *loop, _n = steady_state_early_exit(fm.double(), basis, target)
         assert f32_rounding_excess(got, loop) <= 1e-12

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 
 from msm_we_tpu.ops import kmeans as jkm
 from msm_we_tpu.parallel import sharded as jsh
+from msm_we_tpu_torch import entry as tentry
 from msm_we_tpu_torch import step as tstep
 from msm_we_tpu_torch.entry import (
     TIERS,
@@ -129,7 +130,14 @@ def test_stage_problem_records_the_route(small_problem, wide_problem):
     assert "grouped" not in stage_problem(wide_problem, "dedup", "cpu")
 
 
-def test_grouped_route_equals_plain_h2(wide_problem):
+def _without_tail(monkeypatch):
+    """Leave the steady-state tail out of ``_hot_step`` (at 3,202 states:
+    minutes on one thread)."""
+    monkeypatch.setattr(tentry, "steady_state_from_flux",
+                        lambda fm, basis, target: (None,) * 4)
+
+
+def test_grouped_route_equals_plain_h2(wide_problem, monkeypatch):
     """The 128-bin step's composed route (features-only transforms, then H3
     on ``c2adj``) against plain H2 on the same raw rows: equal ids, and the
     same flux with dyadic weights."""
@@ -143,12 +151,13 @@ def test_grouped_route_equals_plain_h2(wide_problem):
     assert torch.equal(pidx, ref[0]) and torch.equal(cidx, ref[1])
     assert torch.equal(fm, ref[2])
     # The step takes it (the 3,202-state tail left out: minutes on one thread)
-    out = _hot_step(s, "two_transform", lambda fm, basis, target: (None,) * 4)
+    _without_tail(monkeypatch)
+    out = _hot_step(s, "two_transform")
     assert torch.equal(out["pidx"], pidx) and torch.equal(out["cidx"], cidx)
     assert torch.equal(out["fm"], fm)
 
 
-def test_grouped_step_matches_jax_production_step(wide_problem):
+def test_grouped_step_matches_jax_production_step(wide_problem, monkeypatch):
     """The comparison above on the 128-bin problem, whose step takes the
     bin-grouped route: ids against the JAX production step's up to
     near-ties, and its flux with dyadic weights (the 3,202-state tail is
@@ -157,7 +166,8 @@ def test_grouped_step_matches_jax_production_step(wide_problem):
     s = stage_problem(p, "two_transform", "cpu")
     assert s["grouped"]
     fp, fc, jfm, jp, jc = _jax_ids(p, dedup=False)
-    out = _hot_step(s, "two_transform", lambda fm, basis, target: (None,) * 4)
+    _without_tail(monkeypatch)
+    out = _hot_step(s, "two_transform")
     K = len(p["centers"])
     bank = (p["centers"], p["center_bin"], p["valid"])
     n = assert_ids_match(out["pidx"], jp, fp, p["pbins"], *bank, n_regular=K)

@@ -259,10 +259,6 @@ class _FakeEntry:
         self.runs = 0
         self.calls = []
 
-    def replay(self):
-        self.launch()
-        return self.copy_out()
-
     def launch(self):
         self.runs += 1
 
@@ -285,7 +281,8 @@ class _FakeCapture:
     def __init__(self):
         self.entries = []
 
-    def __call__(self, eager, graphed, args, device, traced=False):
+    def __call__(self, fn, args, device, traced=False):
+        assert fn is _step
         self.entries.append(_FakeEntry(traced))
         return self.entries[-1]
 
@@ -296,17 +293,17 @@ def _step(a, b):
 
 def test_graph_runs_record_spans_and_a_traced_entry_under_collect(monkeypatch):
     fake = _FakeCapture()
-    cache = _graph.GraphCache(capture=fake)
+    cache = _graph.GraphCache(capture=fake, device_type="cpu")
     a = torch.zeros(2)
     with monkeypatch.context() as mp:
         def no_span(name):
             raise AssertionError(f"span {name} opened with tracing off")
 
         mp.setattr(_graph.tracing, "span", no_span)
-        assert cache.run(_step, _step, a, a) == 1
+        assert cache.run(_step, a, a) == 1
     with collect() as col:
-        runs = [cache.run(_step, _step, a, a) for _ in range(3)]
-    assert cache.run(_step, _step, a, a) == 2  # the plain entry again
+        runs = [cache.run(_step, a, a) for _ in range(3)]
+    assert cache.run(_step, a, a) == 2  # the plain entry again
     plain, traced = fake.entries
     assert (plain.traced, traced.traced, len(cache)) == (False, True, 2)
     assert runs == [1, 2, 3] and plain.calls == []
@@ -320,14 +317,15 @@ def test_graph_runs_record_spans_and_a_traced_entry_under_collect(monkeypatch):
     assert _graph.graph_key(_step, [a, a], traced=True) in cache
 
 
-def test_the_cpu_route_under_collect_spans_its_check_alone():
-    def never(*_a):
-        raise AssertionError("the graphed form ran on CPU tensors")
+def test_the_cpu_route_under_collect_spans_its_check_alone(monkeypatch):
+    def never(*_a, **_k):
+        raise AssertionError("a graph was captured for CPU tensors")
 
+    monkeypatch.setattr(_graph._CACHE, "_capture", never)
     a = torch.arange(3.0)
     before = len(_graph._CACHE)
     with collect() as col:
-        out = _graph.run(_step, never, a, a)
+        out = _graph.run(_step, a, a)
     assert torch.equal(out, 2 * a) and len(_graph._CACHE) == before
     assert {n: len(v) for n, v in col.spans.items()} == {"graph.lookup": 1}
     assert col.device_ms == {} and col.counts == {}
