@@ -166,10 +166,14 @@ Phases, each printing one JSON line:
 11. ``tail``: the steady-state tail above ``ops.steady_tail.S_MAX``, on the
    flux matrix of the ``ntl9_100k.bins128`` cell's step (``make_problem``
    seed 0, 128 bins x 25: 3,202 states), which an f32 matrix takes in
-   float64 (``ops.steady_tail.tail_dtype``): one ``steady_state_rounds``
-   line, as the ``main`` phase's for the tail kernel, with the float64
-   route's forms, its device ms and bound, and the parent's f32 tail
-   beside it (``_tail_rounds``).
+   float64 (``ops.steady_tail.tail_dtype``) with its row passes on the
+   kernels of ``ops/tail_rows.py``: the step's graph must show them in a
+   trace of its replays (``bins128_step``), then one
+   ``steady_state_rounds`` line, as the ``main`` phase's for the tail
+   kernel, with the float64 route's forms (also with the PyTorch row
+   passes), its device ms and bound, the f32 tail beside it
+   (``_tail_rounds``), and the row kernels' device ms and byte floors at 0
+   and 16 rounds (``row_kernels``).
 12. ``route``: the ``two_transform`` step's assignment and flux by H2 and
    by the bin-grouped route (features-only H1, then H3 on H2's
    ``c2adj``) at 1 to 128 bins of 25 centers (``ROUTE_BINS``)
@@ -218,6 +222,14 @@ KERNEL_INFO = {
     "steady_tail": dict(
         pallas="none", replaces="msm_we_tpu/parallel/sharded.py:538",
         source="msm_we_tpu_torch/csrc/steady_tail.cu"),
+    # The float64 tail's row passes above S_MAX (XLA's in the JAX package);
+    # timed by the tail phase's row_kernels line
+    "tail_renorm": dict(
+        pallas="none", replaces="msm_we_tpu/parallel/sharded.py:538",
+        source="msm_we_tpu_torch/csrc/tail_rows.cu"),
+    "tail_transition": dict(
+        pallas="none", replaces="msm_we_tpu/parallel/sharded.py:538",
+        source="msm_we_tpu_torch/csrc/tail_rows.cu"),
 }
 # Published H100 SXM peaks (NVIDIA H100 datasheet): HBM bytes/s and
 # f32 FLOP/s outside the tensor cores (every assignment stays exact f32)
@@ -759,12 +771,16 @@ def _build_parity(data, scan):
 
 
 # The wrappers each graph of the main path calls (a two_transform step
-# whose bank takes the bin-grouped route, ``entry.grouped_route``: H1 and H3)
+# whose bank takes the bin-grouped route, ``entry.grouped_route``: H1 and H3),
+# and the tail phase's 128-bin step (3,202 states: the float64 tail's row
+# kernels)
 GRAPH_KERNELS = {"two_transform": ("transform_assign", "steady_tail"),
                  "two_transform_grouped": ("transform_assign_child", "assign_flux",
                                            "steady_tail"),
                  "dedup": ("transform_assign_child", "assign_flux", "steady_tail"),
-                 "entry": ("assign_flux", "steady_tail")}
+                 "entry": ("assign_flux", "steady_tail"),
+                 "bins128": ("transform_assign_child", "assign_flux",
+                             "tail_transition", "tail_renorm")}
 
 
 def _step_profile(fn, reps):
@@ -956,21 +972,24 @@ def _f32_tail(fm, basis, target, tol, rounds):
 
 def _tail_rounds_f64(fm, reps):
     """The steady-state tail of an f32 ``fm`` of more than ``S_MAX`` states,
-    which takes it in float64 (``ops.steady_tail.tail_dtype``), each form
-    captured into a CUDA graph of its own: 16 rounds guarded by
-    ``torch.where`` (``where``), the rounds as conditional nodes
-    (``conditional``), and those at ``tol = 0`` where all 16 bodies run
-    (``conditional_taken``). Each must lie within its f32 rounding and
-    1e-12 of the float64 early-exit loop at the same ``tol`` (``bitwise``:
-    whether it equals that loop's outputs cast to f32). The
-    ``conditional`` form's line adds the tail's device ms by the event
-    nodes of its traced graph (``tracing.collect()``: what
-    ``step.tail_device_ms`` reads) and their rounds, its bound (float64
-    operations of the squarings taken over 67 TFLOP/s, or each squaring's
-    operand and product over 3.35 TB/s), and the parent's f32 tail beside
-    it: eagerly (``plain_ms``: 16 ``torch.where`` rounds) and as a graph of
-    conditional nodes (``f32_graph_ms``), with the extra squarings of the
-    f32 early-exit loop."""
+    which takes it in float64 (``ops.steady_tail.tail_dtype``) with its
+    row passes on ``ops/tail_rows.py``'s kernels, each form captured into
+    a CUDA graph of its own: 16 rounds guarded by ``torch.where``
+    (``where``), the rounds as conditional nodes (``conditional``), those
+    at ``tol = 0`` where all 16 bodies run (``conditional_taken``), and the
+    last two with the PyTorch row passes (``torch_rows``,
+    ``torch_rows_taken``: the route before the row kernels). Each must lie
+    within its f32 rounding and 1e-12 of the float64 early-exit loop at the
+    same ``tol`` (``bitwise``: whether it equals that loop's outputs cast
+    to f32). The ``conditional`` form's line adds the tail's device ms by
+    the event nodes of its traced graph (``tracing.collect()``: what
+    ``step.tail_device_ms`` reads), their rounds and row-route replays, its
+    bound (float64 operations of the squarings taken over 67 TFLOP/s, or
+    each squaring's operand and product over 3.35 TB/s), and the f32 tail
+    beside it: eagerly (``plain_ms``: 16 ``torch.where`` rounds) and as a
+    graph of conditional nodes (``f32_graph_ms``), with the extra squarings
+    of the f32 early-exit loop. ``row_kernels`` (:func:`_row_kernels`)
+    times the row kernels alone."""
     import functools
 
     import torch
@@ -997,13 +1016,15 @@ def _tail_rounds_f64(fm, reps):
     require(ref[0.0][4] == 16, f"the float64 early-exit loop took "
                                f"{ref[0.0][4]} extra squarings at tol = 0")
 
-    def route(rounds, tol):
+    def route(rounds, tol, rows=True):
         return lambda: step._steady_state(fm, basis, target, 512, tol, 16,
-                                          rounds, torch.float64)
+                                          rounds, torch.float64, rows)
 
     forms = {"where": (route(step._where_rounds, 1e-6), 1e-6),
              "conditional": (route(step._rounds, 1e-6), 1e-6),
-             "conditional_taken": (route(step._rounds, 0.0), 0.0)}
+             "conditional_taken": (route(step._rounds, 0.0), 0.0),
+             "torch_rows": (route(step._rounds, 1e-6, False), 1e-6),
+             "torch_rows_taken": (route(step._rounds, 0.0, False), 0.0)}
     for form, (fn, tol) in forms.items():
         cap = _graph.capture(fn, (), fm.device)
         got = cap.replay()
@@ -1036,21 +1057,68 @@ def _tail_rounds_f64(fm, reps):
                                   step._where_rounds)
     f32_graph = _graph.capture(functools.partial(
         _f32_tail, fm, basis, target, 1e-6, step._rounds), (), fm.device)
+    _d, _o, traced_kernels = _step_profile(traced.launch, reps)
     res["conditional"].update(
         tail_device_ms=tail_ms[len(tail_ms) // 2],
         traced_rounds=col.counts["tail_rounds"] / reps,
         traced_f64=col.counts.get("tail_f64", 0) / reps,
+        traced_rows=col.counts.get("tail_rows", 0) / reps,
+        traced_row_launches={k: traced_kernels[k] / reps for k in (
+            "tail_transition_kernel", "tail_renorm_kernel")},
         bound_ms=max(t_ops, t_bytes) * 1e3,
         bound_by="operations" if t_ops > t_bytes else "bytes",
         plain_ms=cuda_ms(f32_where, reps),
         f32_graph_ms=cuda_ms(f32_graph.replay, reps))
     require(res["conditional"]["traced_rounds"] == res["extra_squarings"]
-            and res["conditional"]["traced_f64"] == 1,
+            and res["conditional"]["traced_f64"] == 1
+            and res["conditional"]["traced_rows"] == 1,
             f"tail at S = {S}: the traced graph counted "
             f"{res['conditional']['traced_rounds']} rounds a replay (the "
-            f"float64 loop {res['extra_squarings']}) and "
-            f"{res['conditional']['traced_f64']} float64 replays a replay")
+            f"float64 loop {res['extra_squarings']}), "
+            f"{res['conditional']['traced_f64']} float64 and "
+            f"{res['conditional']['traced_rows']} row-kernel replays a replay")
+    require(all(v > 0 for v in res["conditional"]["traced_row_launches"].values()),
+            f"tail at S = {S}: the row kernels are missing from the trace of "
+            f"the traced graph's replays: {res['conditional']['traced_row_launches']}")
+    res["row_kernels"] = _row_kernels(fm, basis, target, reps)
     return res
+
+
+def _row_kernels(fm, basis, target, reps):
+    """The float64 tail's row kernels on ``fm`` (``ops/tail_rows.py``), in
+    the eager tail with 0 and with 16 guarded rounds (9 and 25 squarings):
+    each kernel's device ms a launch (``torch.profiler``) beside its byte
+    floor over 3.35 TB/s (the renormalisation reads and writes the S x S
+    f64 matrix once; the transition pass reads the flux and writes T in
+    f64 and its copy in the flux's dtype), and the tail's device ms in all,
+    in its DGEMMs (``gemm`` kernels) and outside them, with the row kernels
+    and with the PyTorch row passes."""
+    import torch
+
+    from msm_we_tpu_torch import step
+
+    S = fm.shape[0]
+    sq = float(S) * S
+    out = dict(renorm_floor_ms=2 * 8 * sq / HBM_BYTES_PER_S * 1e3,
+               transition_floor_ms=(fm.element_size() * 2 + 8) * sq
+               / HBM_BYTES_PER_S * 1e3)
+    for n in (0, 16):
+        def tail(rows):
+            return lambda: step._steady_state(fm, basis, target, 512, 1e-6, n,
+                                              step._where_rounds,
+                                              torch.float64, rows)
+
+        line = dict(
+            renorm_ms=device_ms(tail(True), "tail_renorm_kernel", reps)
+            / (step._fixed_squarings(512) + n),
+            transition_ms=device_ms(tail(True), "tail_transition_kernel", reps))
+        for rows, name in ((True, "rows"), (False, "torch")):
+            total = _step_profile(tail(rows), reps)[0]
+            gemm = device_ms(tail(rows), "gemm", reps)
+            line.update({f"{name}_device_ms": total, f"{name}_gemm_ms": gemm,
+                         f"{name}_other_ms": total - gemm})
+        out[f"rounds_{n}"] = line
+    return out
 
 
 # ------------------------------------------------------------------ route
@@ -1192,15 +1260,22 @@ def phase_route(args, summary):
 
 def phase_tail(args, summary):
     """The steady-state tail above ``S_MAX``: the float64 route on the
-    ``ntl9_100k.bins128`` cell's flux matrix (3,202 states)."""
+    ``ntl9_100k.bins128`` cell's flux matrix (3,202 states). The cell's
+    graphed step must show the row kernels in a trace of its replays
+    (``GRAPH_KERNELS["bins128"]``)."""
     import torch
 
     from msm_we_tpu_torch.entry import hot_step, stage_problem
+    from msm_we_tpu_torch.ops import stratified_assign as sa
     from msm_we_tpu_torch.testing import make_problem
 
     s = stage_problem(make_problem(seed=0, n_bins=128), "two_transform", "cuda")
-    fm = hot_step(s, "two_transform")["fm"]
-    del s
+    launches = dict.fromkeys(sa.KERNELS, 0)
+    out, step_trace = _graphed_run(lambda: hot_step(s, "two_transform"),
+                                   args.reps, "bins128", launches)
+    fm = out["fm"]
+    emit(dict(phase="bins128_step", **step_trace))
+    del s, out
     torch.cuda.empty_cache()
     line = _tail_rounds(fm, args.reps)
     emit(dict(phase="steady_state_rounds", tier="bins128", **line))
@@ -1209,7 +1284,9 @@ def phase_tail(args, summary):
         tail_device_ms=line["conditional"]["tail_device_ms"],
         bound_ms=line["conditional"]["bound_ms"],
         plain_ms=line["conditional"]["plain_ms"],
-        f32_graph_ms=line["conditional"]["f32_graph_ms"])
+        f32_graph_ms=line["conditional"]["f32_graph_ms"],
+        torch_rows_ms=line["torch_rows"]["ms"],
+        row_kernels=line["row_kernels"])
 
 
 def _early_exit_step(s, tier):
@@ -1368,8 +1445,11 @@ def phase_main(args, summary):
               clusters_after=int(model.fluxMatrix.shape[0]),
               JtargetSS=float(model.JtargetSS)))
     # H2 is off the main path where its bank takes the bin-grouped route
-    # (the kernels and route phases run it)
-    off_path = {"transform_assign"} if staged_grouped else set()
+    # (the kernels and route phases run it); the float64 tail's row kernels
+    # run above S_MAX only (the tail phase)
+    off_path = {"tail_renorm", "tail_transition"}
+    if staged_grouped:
+        off_path.add("transform_assign")
     for name in sa.KERNELS:
         require(counts[name] > 0 or name in off_path,
                 f"kernel {name} never launched on the main path")

@@ -42,6 +42,8 @@ _SIGNATURES = {
     "msm_pair_assign": [_P] * 8 + [_I] + [_P] * 3 + [_I] * 4 + [_P] * 5,
     "msm_graph_add_if": [_P, _P, _P],
     "msm_steady_tail": [_P] * 3 + [_I] * 3 + [_F] + [_P] * 8,
+    "msm_tail_renorm": [_P, _I, _I, _P],
+    "msm_tail_transition": [_P, _I, _P, _P, _I, _I] + [_P] * 4,
 }
 
 _lock = threading.Lock()

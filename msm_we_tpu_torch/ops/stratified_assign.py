@@ -55,6 +55,7 @@ import torch
 from ._ext import _count_launch, check, library
 from .kmeans import masked_scores
 from .steady_tail import steady_tail
+from . import tail_rows
 
 __all__ = [
     "transform_assign_child",
@@ -631,13 +632,16 @@ def pair_assign(fp, fc, pbins, cbins, centers, center_bin, valid,
 
 
 # Every kernel wrapper of the port, by name: one reset and one read of their
-# launch counts (the steady-state tail's kernel, ``ops/steady_tail.py``, too)
+# launch counts (the steady-state tail's kernels, ``ops/steady_tail.py`` and
+# ``ops/tail_rows.py``, too)
 KERNELS = {
     "transform_assign_child": transform_assign_child,
     "transform_assign": transform_assign,
     "assign_flux": assign_flux,
     "pair_assign": pair_assign,
     "steady_tail": steady_tail,
+    "tail_renorm": tail_rows.renormalize,
+    "tail_transition": tail_rows.transition,
 }
 # The CUDA kernel each wrapper launches, by its name in a trace (H1 and H2
 # launch one template)
@@ -647,6 +651,8 @@ KERNEL_SYMBOLS = {
     "assign_flux": "assign_flux_kernel",
     "pair_assign": "pair_assign_kernel",
     "steady_tail": "steady_tail_kernel",
+    "tail_renorm": "tail_renorm_kernel",
+    "tail_transition": "tail_transition_kernel",
 }
 for _fn in KERNELS.values():
     _fn.launches = 0

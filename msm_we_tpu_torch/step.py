@@ -22,8 +22,9 @@ import torch
 
 from . import _graph
 from ._device import f64_threshold
-from .ops import steady_tail
+from .ops import steady_tail, tail_rows
 from .ops.steady_tail import _fixed_squarings
+from .ops.tail_rows import ROW_ALIGN, _aligned_empty
 from .ops.stratified_assign import (
     _apply_overrides,
     _scatter_flux,
@@ -159,34 +160,27 @@ def _transition_matrix(fm, basis_mask, target_mask):
     return torch.where(target_mask[:, None], recycle[None, :], T)
 
 
-# Rows of the tail's squared matrices start on this many bytes: cuBLAS's
-# product of two (3,202, 3,202) f64 matrices takes 1.21-1.37 ms with such
-# rows and 1.72 ms with rows of 3,202 (16-byte steps) on an H100 (PERF.md,
-# section 6)
-ROW_ALIGN = 32
-
-
-def _aligned_empty(S, like):
-    """An uninitialised (S, S) matrix of ``like``'s dtype and device whose
-    rows start every ``ROW_ALIGN`` bytes: the first ``S`` columns of a
-    buffer whose rows are padded to that step."""
-    step = ROW_ALIGN // like.element_size()
-    ld = -(-S // step) * step
-    return torch.empty((S, ld), dtype=like.dtype, device=like.device)[:, :S]
-
-
 def _aligned(T):
-    """``T`` (S, S) with its rows on ``ROW_ALIGN`` bytes: itself where they
-    are, else a copy (the same values)."""
+    """``T`` (S, S) with its rows on ``ROW_ALIGN`` bytes
+    (``ops.tail_rows``): itself where they are, else a copy (the same
+    values)."""
     if T.is_contiguous() and T.shape[1] * T.element_size() % ROW_ALIGN == 0:
         return T
-    return _aligned_empty(T.shape[0], T).copy_(T)
+    return _aligned_empty(T.shape[0], T.dtype, T.device).copy_(T)
 
 
-def _square(Tn):
-    out = torch.mm(Tn, Tn, out=_aligned_empty(Tn.shape[0], Tn))
-    # Renormalize rows: f32 powering drifts row sums off 1
+def _renormalize(out):
+    """Rows of ``out`` divided in place by their sums clamped at 1e-30 (f32
+    powering drifts row sums off 1): the plain version of
+    ``ops.tail_rows.renormalize``."""
     return out.div_(out.sum(1, keepdim=True).clamp(min=1e-30))
+
+
+def _square(Tn, renormalize=_renormalize):
+    """``Tn`` squared into rows on ``ROW_ALIGN`` bytes, its rows then
+    renormalised by ``renormalize``."""
+    return renormalize(torch.mm(Tn, Tn, out=_aligned_empty(
+        Tn.shape[0], Tn.dtype, Tn.device)))
 
 
 def _stationary(Tn, T):
@@ -204,27 +198,29 @@ def _target_flux(T, p, target_mask):
             * p[:, None]).sum()
 
 
-def _round(Tn, T):
+def _round(Tn, T, renormalize=_renormalize):
     """One extra squaring: ``Tn`` squared, its stationary vector and
     residual."""
-    Tc = _square(Tn)
+    Tc = _square(Tn, renormalize)
     return (Tc, *_stationary(Tc, T))
 
 
-def _where_rounds(Tn, p, residual, T, tol, n_rounds):
+def _where_rounds(Tn, p, residual, T, tol, n_rounds, renormalize=_renormalize):
     """Guarded rounds: each computes its candidate and keeps it only where
     the 0-dim flag ``residual > tol`` holds, so a round after convergence
-    changes nothing (the early-exit loop's result, no host read)."""
+    changes nothing (the early-exit loop's result, no host read). Each
+    squaring's rows are renormalised by ``renormalize``."""
     for _ in range(n_rounds):
         go = residual > tol
-        Tc, pc, rc = _round(Tn, T)
+        Tc, pc, rc = _round(Tn, T, renormalize)
         Tn = torch.where(go, Tc, Tn)
         p = torch.where(go, pc, p)
         residual = torch.where(go, rc, residual)
     return Tn, p, residual
 
 
-def _conditional_rounds(Tn, p, residual, T, tol, n_rounds):
+def _conditional_rounds(Tn, p, residual, T, tol, n_rounds,
+                        renormalize=_renormalize):
     """:func:`_where_rounds` inside a capture by ``_graph``: each round is a
     conditional node on ``residual > tol`` (so a round after convergence
     launches no more than the flag's kernels) and writes its result into
@@ -236,35 +232,48 @@ def _conditional_rounds(Tn, p, residual, T, tol, n_rounds):
         with _graph.conditional(residual > tol):
             if rounds is not None:
                 rounds.add_(1)
-            Tc, pc, rc = _round(Tn, T)
+            Tc, pc, rc = _round(Tn, T, renormalize)
             Tn.copy_(Tc)
             p.copy_(pc)
             residual.copy_(rc)
     return Tn, p, residual
 
 
-def _rounds(Tn, p, residual, T, tol, n_rounds):
+def _rounds(Tn, p, residual, T, tol, n_rounds, renormalize=_renormalize):
     """The PyTorch tail's extra rounds: conditional nodes inside a capture
     by ``_graph`` (``_graph.capturing()``, host state), else guarded
     rounds."""
     rounds = _conditional_rounds if _graph.capturing() else _where_rounds
-    return rounds(Tn, p, residual, T, tol, n_rounds)
+    return rounds(Tn, p, residual, T, tol, n_rounds, renormalize=renormalize)
 
 
 def _steady_state(fm, basis_mask, target_mask, n_iters, tol,
-                  max_extra_squarings, rounds, dtype):
+                  max_extra_squarings, rounds, dtype, rows=False):
     """The PyTorch tail in ``dtype``, its extra squarings taken by
     ``rounds`` (:func:`_rounds`, :func:`_where_rounds` or
-    :func:`_conditional_rounds`). ``tol`` becomes the largest number of
-    ``dtype`` not above it, so the device comparison decides as a host read
-    would. The outputs are in ``fm``'s dtype."""
+    :func:`_conditional_rounds`). With ``rows`` (a float64 tail on CUDA)
+    its row passes are ``ops.tail_rows``'s kernels: one pass for the
+    transition matrix, its copy in ``fm``'s dtype and its target mass, and
+    one for each squaring's renormalisation, the target flux then ``p .
+    mass``; else their plain versions (:func:`_transition_matrix`,
+    :func:`_renormalize`, :func:`_target_flux`). ``tol`` becomes the
+    largest number of ``dtype`` not above it, so the device comparison
+    decides as a host read would. The outputs are in ``fm``'s dtype."""
     tol = f64_threshold(tol, dtype)
-    T = _aligned(_transition_matrix(fm.to(dtype), basis_mask, target_mask))
+    if rows:
+        T, T_out, mass = tail_rows.transition(fm, basis_mask, target_mask)
+        renormalize = tail_rows.renormalize
+    else:
+        T = _aligned(_transition_matrix(fm.to(dtype), basis_mask, target_mask))
+        renormalize = _renormalize
     Tn = T
     for _ in range(_fixed_squarings(n_iters)):
-        Tn = _square(Tn)
+        Tn = _square(Tn, renormalize)
     p, residual = _stationary(Tn, T)
-    Tn, p, residual = rounds(Tn, p, residual, T, tol, max_extra_squarings)
+    Tn, p, residual = rounds(Tn, p, residual, T, tol, max_extra_squarings,
+                             renormalize=renormalize)
+    if rows:
+        return (T_out, *(x.to(fm.dtype) for x in (p, p @ mass, residual)))
     out = T, p, _target_flux(T, p, target_mask), residual
     return tuple(x.to(fm.dtype) for x in out)
 
@@ -289,20 +298,25 @@ def steady_state_from_flux(fm, basis_mask, target_mask, n_iters=512,
     sit at its rounding floor), its rounds taken by :func:`_rounds`: inside
     a capture by ``_graph`` conditional nodes (:func:`_conditional_rounds`),
     elsewhere each round computes its candidate and keeps it only while
-    the 0-dim flag ``residual > tol`` holds (:func:`_where_rounds`). In a
-    traced capture the tail marks ``device_ms["tail"]`` where it starts,
-    counts its route (``tail_fused``, ``tail_f64``) and its rounds
-    (``tail_rounds``). Returns ``(T, p, flux, residual)``.
+    the 0-dim flag ``residual > tol`` holds (:func:`_where_rounds`). A
+    PyTorch tail in float64 on CUDA (``ops.tail_rows.uses_kernels``) takes
+    its row passes by ``ops.tail_rows``'s kernels; every other keeps their
+    plain versions. In a traced capture the tail marks ``device_ms["tail"]``
+    where it starts, counts its route (``tail_fused``, ``tail_f64``,
+    ``tail_rows``) and its rounds (``tail_rounds``). Returns ``(T, p, flux,
+    residual)``.
     """
     S = fm.shape[0]
     kernel = steady_tail.uses_kernel(fm.device, fm.dtype, S)
     dtype = steady_tail.tail_dtype(fm.dtype, S)
+    rows = not kernel and tail_rows.uses_kernels(fm.device, dtype)
     _graph.mark("tail")
     _graph.count("tail_fused", kernel)
     _graph.count("tail_f64", dtype != fm.dtype)
+    _graph.count("tail_rows", rows)
     if kernel:
         return steady_tail.steady_tail(
             fm, basis_mask, target_mask, n_iters, tol, max_extra_squarings,
             counter=_graph.counter("tail_rounds"))[:4]
     return _steady_state(fm, basis_mask, target_mask, n_iters, tol,
-                         max_extra_squarings, _rounds, dtype)
+                         max_extra_squarings, _rounds, dtype, rows)

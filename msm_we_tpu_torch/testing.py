@@ -6,12 +6,12 @@ Counterpart of ``msm_we_tpu/testing.py`` (``tiny_stratified_problem``,
 step's NTL9-scale shapes). numpy only: the same seed gives the same arrays
 as the JAX package's generators. ``steady_state_early_exit`` is the plain
 early-exit form of the hot step's steady-state tail,
-``tail_order_excess`` the tolerance between two f32 tails that sum in
-different orders, ``tail_residual_excess`` how far the tail kernel's
-residual lies from its own ``T`` and ``p``, ``f32_rounding_excess`` how
-far the float64 tail's f32 outputs lie from the float64 loop's, and
-``flux_order_bound`` the tolerance between two f32 fluxes summed in
-different orders (torch).
+``tail_order_excess`` the tolerance between two f32 (or two float64)
+tails that sum in different orders, ``tail_residual_excess`` how far the
+tail kernel's residual lies from its own ``T`` and ``p``,
+``f32_rounding_excess`` how far the float64 tail's f32 outputs lie from
+the float64 loop's, and ``flux_order_bound`` the tolerance between two f32
+fluxes summed in different orders (torch).
 """
 from __future__ import annotations
 
@@ -226,11 +226,16 @@ def steady_state_early_exit(fm, basis_mask, target_mask, n_iters=512, tol=1e-6,
     return T, p, _target_flux(T, p, target_mask), residual, n_extra
 
 
-def tail_order_excess(got, ref):
+def tail_order_excess(got, ref, dtype=None):
     """How far the f32 tail ``got`` = ``(T, p, flux, residual)`` lies beyond
     the bound of the reference ``ref`` (the same four, from the same flux
     matrix, summed in other orders), by output: each number is the largest
-    excess of ``|got - ref|`` over its bound, ``<= 0`` within it.
+    excess of ``|got - ref|`` over its bound, ``<= 0`` within it. With
+    ``dtype`` float64 the bounds are the float64 tail's: ``eps32`` becomes
+    ``eps64`` below, and the tolerances of ``p`` and the flux shrink by
+    ``eps64 / eps32`` (as many roundings, in float64: 1.9e-13 relatively),
+    for the row kernels of ``ops/tail_rows.py`` against their plain
+    versions.
 
     * ``T``: ``(S + 2) eps32 |T_ref|`` a cell. A row's outflux is a sum of
       ``S`` nonnegative numbers; any order lies within ``(S - 1) eps32 / 2``
@@ -251,15 +256,19 @@ def tail_order_excess(got, ref):
 
     A NaN anywhere reads as NaN, which no ``<= 0`` test passes.
     """
+    import torch
+
+    eps = torch.finfo(dtype or torch.float32).eps
+    k = eps / _EPS32
     gT, gp, gf, gr = (x.double() for x in got)
     rT, rp, rf, rr = (x.double() for x in ref)
     S = rT.shape[0]
     dp = (gp - rp).abs()
     return dict(
-        T=float(((gT - rT).abs() - (S + 2) * _EPS32 * rT.abs()).max()),
-        p=float((dp - (1e-4 * rp.abs() + 1e-6)).max()),
-        flux=float((gf - rf).abs() - (1e-4 * rf.abs() + 1e-7)),
-        residual=float((gr - rr).abs() - (2 * dp.sum() + 2 * (S + 1) * _EPS32)),
+        T=float(((gT - rT).abs() - (S + 2) * eps * rT.abs()).max()),
+        p=float((dp - k * (1e-4 * rp.abs() + 1e-6)).max()),
+        flux=float((gf - rf).abs() - k * (1e-4 * rf.abs() + 1e-7)),
+        residual=float((gr - rr).abs() - (2 * dp.sum() + 2 * (S + 1) * eps)),
     )
 
 

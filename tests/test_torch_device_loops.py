@@ -414,7 +414,8 @@ def test_a_launch_counts_only_outside_a_capture(capturing, monkeypatch):
     n = 0 if capturing else 1
     assert {k: after[k] - before[k] for k in after} == dict(
         transform_assign_child=0, transform_assign=0, assign_flux=n,
-        pair_assign=n, steady_tail=0, scores=n)
+        pair_assign=n, steady_tail=0, tail_renorm=0, tail_transition=0,
+        scores=n)
     sa.pair_assign.launches -= n
     sa.pair_assign.score_launches -= n
     sa.assign_flux.launches -= n
@@ -481,9 +482,10 @@ def test_conditional_rounds_take_the_early_exit_loops_rounds(name,
             for t, v in zip(state, saved):
                 t.copy_(v)
 
-    def rounds(Tn, p, residual, T, tol, n_rounds):
+    def rounds(Tn, p, residual, T, tol, n_rounds, **kw):
         state[:] = [Tn, p, residual]
-        return tstep._conditional_rounds(Tn, p, residual, T, tol, n_rounds)
+        return tstep._conditional_rounds(Tn, p, residual, T, tol, n_rounds,
+                                         **kw)
 
     state = []
     monkeypatch.setattr(_graph, "conditional", run_where)
@@ -515,10 +517,11 @@ def test_conditional_rounds_take_the_float64_loops_rounds(name, monkeypatch):
             for t, v in zip(state, saved):
                 t.copy_(v)
 
-    def rounds(Tn, p, residual, T, tol, n_rounds):
+    def rounds(Tn, p, residual, T, tol, n_rounds, **kw):
         assert Tn.dtype == p.dtype == residual.dtype == torch.float64
         state[:] = [Tn, p, residual]
-        return tstep._conditional_rounds(Tn, p, residual, T, tol, n_rounds)
+        return tstep._conditional_rounds(Tn, p, residual, T, tol, n_rounds,
+                                         **kw)
 
     monkeypatch.setattr(_graph, "conditional", run_where)
     make, rounds64, _rounds32 = WIDE_CASES[name]

@@ -233,10 +233,11 @@ def _eager_rounds(fm, basis, target, tol=1e-6):
     read after the tail."""
     flags = []
 
-    def rounds(Tn, p, residual, T, tol, n):
+    def rounds(Tn, p, residual, T, tol, n, **kw):
         for _ in range(n):
             flags.append(residual > tol)
-            Tn, p, residual = tstep._where_rounds(Tn, p, residual, T, tol, 1)
+            Tn, p, residual = tstep._where_rounds(Tn, p, residual, T, tol, 1,
+                                                  **kw)
         return Tn, p, residual
 
     out = tstep._steady_state(fm, basis, target, 512, tol, 16, rounds,
@@ -455,11 +456,13 @@ def route_problems():
 
 # The wrappers a two_transform step launches, by the bank's bin count: H2
 # and the tail kernel at 6 bins; two features-only H1 launches and H3 at 10
-# and 128, with the tail kernel at 252 states (the f64 tail at 3,202
-# launches none of the port's kernels)
+# and 128, with the tail kernel at 252 states and the f64 tail's row
+# kernels at 3,202 (the transition pass, and a renormalisation after each
+# of the 9 squarings and of the 16 guarded rounds of the eager warm-up)
 ROUTE_LAUNCHES = {6: dict(transform_assign=1, steady_tail=1),
                   10: dict(transform_assign_child=2, assign_flux=1, steady_tail=1),
-                  128: dict(transform_assign_child=2, assign_flux=1)}
+                  128: dict(transform_assign_child=2, assign_flux=1,
+                            tail_transition=1, tail_renorm=25)}
 
 
 @pytest.mark.cuda

@@ -452,7 +452,8 @@ def test_cuda_kernels_match_plain(problem, cuda_device):
     ref = sa.pair_assign_plain(t["fp"], t["fc"], t["pbins"], t["cbins"], *bank)
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert sa.launch_counts() == dict(dict.fromkeys(sa.KERNELS, 1),
-                                      steady_tail=0)
+                                      steady_tail=0, tail_renorm=0,
+                                      tail_transition=0)
 
 
 @pytest.mark.cuda

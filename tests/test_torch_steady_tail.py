@@ -118,9 +118,9 @@ def _capture_on_cpu(monkeypatch):
 
     real_rounds = tstep._conditional_rounds
 
-    def rounds(Tn, p, residual, T, tol, n_rounds):
+    def rounds(Tn, p, residual, T, tol, n_rounds, **kw):
         state[:] = [Tn, p, residual]
-        return real_rounds(Tn, p, residual, T, tol, n_rounds)
+        return real_rounds(Tn, p, residual, T, tol, n_rounds, **kw)
 
     monkeypatch.setattr(_graph, "conditional", run_where)
     monkeypatch.setattr(tstep, "_conditional_rounds", rounds)
@@ -168,7 +168,8 @@ def test_the_tail_asks_the_route(form, kernel, monkeypatch):
     assert fake.calls == ([dict(n_iters=256, tol=1e-5, max_extra=16,
                                 counter=None)] if kernel else [])
     if cap is not None:
-        assert cap.counts == dict(tail_fused=int(kernel), tail_f64=0)
+        assert cap.counts == dict(tail_fused=int(kernel), tail_f64=0,
+                                  tail_rows=0)
 
 
 @pytest.mark.parametrize("form", ["eager", "graphed"])
@@ -190,7 +191,7 @@ def test_both_forms_ask_the_dtype_rule(form, monkeypatch):
     with _within(form, monkeypatch) as cap:
         got = tstep.steady_state_from_flux(fm, basis, target)
     if cap is not None:
-        assert cap.counts == dict(tail_fused=0, tail_f64=1)
+        assert cap.counts == dict(tail_fused=0, tail_f64=1, tail_rows=0)
     assert asked == [(torch.float32, 12)]
     for g, r in zip(got, ref):
         assert g.dtype == torch.float32 and torch.equal(g, r.float())
@@ -215,7 +216,7 @@ def test_a_capture_is_marked_where_its_tail_takes_the_f64_route(name,
     basis, target = _masks(fm.shape[0])
     with _capture_on_cpu(monkeypatch) as cap:
         got = tstep.steady_state_from_flux(fm, basis, target)
-    assert cap.counts == dict(tail_fused=0, tail_f64=int(f64))
+    assert cap.counts == dict(tail_fused=0, tail_f64=int(f64), tail_rows=0)
     for g, e in zip(got, tstep.steady_state_from_flux(fm, basis, target)):
         assert g.dtype == dtype and torch.equal(g, e)
 

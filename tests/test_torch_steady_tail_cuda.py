@@ -122,21 +122,25 @@ def test_two_runs_are_bitwise_equal(cuda_device, problem0_fm, name):
 @pytest.mark.parametrize("S", [st.S_MAX, st.S_MAX + 1])
 def test_the_eager_tail_launches_the_kernel_up_to_s_max(cuda_device, S):
     """At ``S_MAX`` the eager tail is the kernel's; above it the PyTorch
-    tail runs in float64 (no launch of the kernel), bitwise the plain
-    version, its f32 outputs within their rounding (and 1e-12) of the
-    float64 early-exit loop's."""
+    tail runs in float64 (no launch of the kernel) on the row kernels of
+    ``ops/tail_rows.py``, bitwise the PyTorch tail on those kernels, its
+    f32 outputs within their rounding (and 1e-12) of the float64 early-exit
+    loop's."""
     fm = _dense(S)
     basis, target = _state_masks(S, cuda_device)
-    before = sa.launch_counts()["steady_tail"]
+    before = sa.launch_counts()
     got = tstep.steady_state_from_flux(fm, basis, target)
-    launched = sa.launch_counts()["steady_tail"] - before
+    after = sa.launch_counts()
+    launched = after["steady_tail"] - before["steady_tail"]
+    rows = after["tail_transition"] - before["tail_transition"]
     if S <= st.S_MAX:
         ref = st.steady_tail(fm, basis, target)[:4]
-        assert launched == 1
+        assert launched == 1 and rows == 0
     else:
         ref = tstep._steady_state(fm, basis, target, 512, 1e-6, 16,
-                                  tstep._where_rounds, torch.float64)
-        assert launched == 0
+                                  tstep._where_rounds, torch.float64,
+                                  rows=True)
+        assert launched == 0 and rows == 1
         *loop, _n = steady_state_early_exit(fm.double(), basis, target)
         assert f32_rounding_excess(got, loop) <= 1e-12
     for g, r in zip(got, ref):
