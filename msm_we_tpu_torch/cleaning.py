@@ -19,8 +19,10 @@ import numpy as np
 from ._logging import log
 from .binning import find_nearest_bin
 from .features import _feat_parent_rows
+from .tracing import span
 
 
+@span("clean")
 def organize_flux_cleaning(model, remove_and_rediscretize, max_passes=10,
                            host_flux=False):
     """Each pass: find strongly connected sets (with the artificial

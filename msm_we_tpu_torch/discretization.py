@@ -18,7 +18,7 @@ import torch
 from ._logging import log
 from .features import _feat_parent_rows, mesh_row_feats
 from .parallel.sharded import build_sharded_pair_assign, build_sharded_single_assign
-from .tracing import span
+from .tracing import collector, count, span
 
 
 def _check_live_centers(strat, pbins, cbins):
@@ -208,6 +208,10 @@ def run_streaming_batches(model, strat, feats, batches, delegated,
                     int(batches[b][0][-1] + 1 - batches[b][0][0]) for b in run
                 ]
                 strat.minibatch_scan_run(X_dev, eff_dev, w_dev, starts, lengths)
+                if collector() is not None:
+                    trainable = strat.initialized & (strat.n_centers_per_bin > 0)
+                    count("fold_device_bins",
+                          sum(int(trainable[batches[b][2]].sum()) for b in run))
                 for b in run:
                     ub = batches[b][2]
                     all_filled.update(int(x) for x in ub[strat.initialized[ub]])
@@ -229,6 +233,11 @@ def build_batch_plan(bin_mapper, iters_to_use, n_clusters,
     counts)`` (bins after any ran-out remap), and ``delegated`` flags
     batches whose members were remapped to the nearest filled bins when
     the data ran out (they must run through ``partial_fit``).
+
+    Under ``tracing.count``: ``fold_gathered_iterations``, the iterations
+    a batch holds after its first (none where each iteration fills every
+    bin it reaches), and ``fold_remapped_bins``, the bins remapped when
+    the data ran out.
     """
     from .binning import find_nearest_bin
 
@@ -283,5 +292,7 @@ def build_batch_plan(bin_mapper, iters_to_use, n_clusters,
                 unique_bins, counts = np.unique(bins, return_counts=True)
             batches.append((rows, bins, unique_bins, counts))
             delegated.append(remapped)
+            count("fold_gathered_iterations", j - idx - ran_out)
+            count("fold_remapped_bins", len(unfilled) if remapped else 0)
         idx = j + 1
     return batches, delegated

@@ -18,6 +18,7 @@ import torch
 
 from .._device import f64_threshold
 from .._logging import log
+from ..tracing import span
 from ..utils import find_connected_sets, inverse_iteration, is_connected
 
 __all__ = [
@@ -136,6 +137,7 @@ def target_flux(tmatrix, pSS, ind_targets, n_bins, lagtime):
     return Jt / lagtime
 
 
+@span("steady_state")
 def steady_state_refined(
     tmatrix,
     ind_targets,

@@ -35,6 +35,7 @@ import torch
 
 from .._device import as_device
 from .._logging import log
+from ..tracing import collector, count
 from .kmeans import (
     masked_assign,
     masked_minibatch_scan,
@@ -245,7 +246,9 @@ class StratifiedKmeans:
         running-weighted-mean update (host family under
         ``HOST_BATCH_THRESHOLD`` live rows, device family above); a bin
         seeded in this call is not updated again. Returns the set of bins
-        updated.
+        updated. Each bin seeded or updated counts once, under
+        ``tracing.count``, as ``fold_host_bins`` or ``fold_device_bins`` by
+        the family that ran it.
         """
         X = np.asarray(X, np.float32)
         seg_bins = np.asarray(seg_bins)
@@ -261,6 +264,7 @@ class StratifiedKmeans:
         initialized_before = self.initialized.copy()
         seeded = False
         device_seeds = []
+        host_bins = 0
         for b in unique_bins:
             if self.initialized[b]:
                 continue
@@ -277,6 +281,7 @@ class StratifiedKmeans:
                 self.centers[rows] = cb
                 self.counts[rows] = wsum
                 self.seeded_by_family["host"] += 1
+                host_bins += 1
             else:
                 device_seeds.append((int(b), members))
             self.valid[rows] = True
@@ -294,8 +299,12 @@ class StratifiedKmeans:
                 "their contribution is skipped (bins have no valid centers)"
             )
         live = np.flatnonzero(trainable[seg_bins])
+        device_bins = len(device_seeds)
         if len(live):
+            updated = (int(trainable[unique_bins].sum())
+                       if collector() is not None else 0)
             if len(live) < HOST_BATCH_THRESHOLD:
+                host_bins += updated
                 self._sync_host()
                 Xl, wl, bl = X[live], w[live], seg_bins[live]
                 idx = _np_masked_assign(
@@ -312,6 +321,7 @@ class StratifiedKmeans:
                 ).astype(np.float32)
                 self.counts = new_counts.astype(np.float32)
             else:
+                device_bins += updated
                 centers_d, counts_d = self._device_state()
                 cb_d, valid_d, _init = self._device_meta()
                 dev = self.device
@@ -325,6 +335,8 @@ class StratifiedKmeans:
 
         if seeded:
             self._refresh_ids()
+        count("fold_host_bins", host_bins)
+        count("fold_device_bins", device_bins)
         return set(int(b) for b in unique_bins if self.initialized[b])
 
     def _seed_on_device(self, X, w, device_seeds):
@@ -353,7 +365,8 @@ class StratifiedKmeans:
         """A run of no-seeding streaming batches over row windows of the
         device feature array (``ops.kmeans.masked_minibatch_scan``); only
         the device center/count state advances. The caller guarantees no
-        batch in the run seeds a bin."""
+        batch in the run seeds a bin, and counts the run's bins
+        (``fold_device_bins``)."""
         centers_d, counts_d = self._device_state()
         cb_d, valid_d, init_d = self._device_meta()
         self._dev_state = masked_minibatch_scan(

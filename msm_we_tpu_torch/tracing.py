@@ -9,10 +9,17 @@ Spans. ``span(name)`` times a block of code anywhere in the port:
 * inside a :func:`collect` block of the same thread its seconds go to the
   block's :class:`Collector`;
 * while a ``torch.profiler`` records, it (like every ``StageTimer`` stage)
-  also opens a ``record_function`` range of the same name, so stages and
-  spans sit on the trace's own clock, nested as they ran.
+  also opens a range of the same name (``_RecordFunctionFast``, a
+  ``cpu_op`` event of the trace), so stages and spans sit on the trace's
+  own clock, nested as they ran. The range is entered just before the
+  timer's first clock read and left just after its last, and both edges
+  are stamped in C: the two measure the same interval, and no Python
+  work (nor a garbage collection it may set off) lies between them.
 Where none of these holds, entering a span reads one module-level count
 and the profiler's flag, and nothing else.
+
+Counts. ``count(name, n)`` adds ``n`` to ``counts[name]`` of the thread's
+innermost :func:`collect` block, and does nothing outside one.
 """
 from __future__ import annotations
 
@@ -23,11 +30,12 @@ import os
 import threading
 import time
 
+import torch._C._profiler as _C_profiler
 import torch.autograd.profiler as _profiler
 
 from ._logging import log
 
-__all__ = ["Collector", "StageTimer", "active", "collect", "collector",
+__all__ = ["Collector", "StageTimer", "active", "collect", "collector", "count",
            "live_stage_display", "profile_trace", "span"]
 
 # Open collect() blocks and running StageTimer stages, in every thread: a
@@ -55,6 +63,24 @@ def collector():
     return getattr(_local, "collector", None)
 
 
+def count(name, n=1):
+    """Add ``n`` to ``counts[name]`` of this thread's innermost ``collect()``
+    block; nothing where none is open."""
+    col = getattr(_local, "collector", None)
+    if col is not None:
+        col.counts[name] = col.counts.get(name, 0) + int(n)
+
+
+def _open_range(name):
+    """A profiler range of ``name``, entered, while a profiler records;
+    else None."""
+    if not _profiler._is_profiler_enabled:
+        return None
+    rf = _C_profiler._RecordFunctionFast(name)
+    rf.__enter__()
+    return rf
+
+
 class span:
     """``with span(name):`` times its block (see the module's docstring);
     ``@span(name)`` times each call of the function it decorates."""
@@ -77,14 +103,11 @@ class span:
     def __enter__(self):
         if not (_listeners or _profiler._is_profiler_enabled):
             return self
-        self._rf = None
-        if _profiler._is_profiler_enabled:
-            self._rf = _profiler.record_function(self.name)
-            self._rf.__enter__()
         self._timer = getattr(_local, "timer", None)
         if self._timer is not None:
             self._slot = self._timer._open_span(self.name)
         self._col = getattr(_local, "collector", None)
+        self._rf = _open_range(self.name)
         self._t0 = time.perf_counter()
         return self
 
@@ -92,13 +115,13 @@ class span:
         if self._t0 is None:
             return False
         elapsed = time.perf_counter() - self._t0
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
         self._t0 = None
         if self._col is not None:
             self._col.add(self.name, elapsed)
         if self._timer is not None:
             self._timer._close_span(self._slot, elapsed)
-        if self._rf is not None:
-            self._rf.__exit__(None, None, None)
         return False
 
 
@@ -108,7 +131,8 @@ class Collector:
     ``spans``: the host seconds of each span, by name, in order.
     ``device_ms``: device intervals by name, in milliseconds, one a run of
     a traced source (the hot step's traced CUDA graph, ``_graph.py``).
-    ``counts``: device counters by name, summed over the block's runs.
+    ``counts``: counters by name: device counters summed over the block's
+    runs, and the host's :func:`count`.
 
     A traced source has ``open(col)`` (called at its first run in the
     block), ``read(col)`` (called before any traced source runs again,
@@ -204,10 +228,7 @@ class StageTimer:
         prev = getattr(_local, "timer", None)
         _local.timer = self
         _listen(1)
-        rf = None
-        if _profiler._is_profiler_enabled:
-            rf = _profiler.record_function(name)
-            rf.__enter__()
+        rf = _open_range(name)
         t0 = time.perf_counter()
         try:
             yield self
@@ -368,10 +389,6 @@ def profile_trace(log_dir=None):
     )
     prof = profile(activities=activities)
     prof.trace_path = path
-    # Resolve the range operators before the trace starts: their first
-    # lookup (about 1 ms) would stretch the first stage's range
-    with _profiler.record_function("profile_trace"):
-        pass
     prof.__enter__()
     try:
         yield prof

@@ -125,10 +125,16 @@ def test_profile_dir_trace_survives_a_failing_build(tmp_path):
 
 # ------------------------------------------------------------------- spans
 
-# The sub-spans of a build with block validation (``model_copy``: the
-# post-clustering copy and one a validation group)
-BUILD_SPANS = ["featurize", "cluster_fold", "discretize", "model_copy",
-               "model_copy", "model_copy"]
+# The sub-spans of a build with block validation and the stage each opens
+# in (``model_copy``: the post-clustering copy and one a validation group;
+# ``clean`` and ``steady_state``: the model's, then each group's)
+BUILD_SPANS = [("featurize", "Clustering"), ("cluster_fold", "Clustering"),
+               ("discretize", "Clustering"), ("model_copy", "Clustering"),
+               ("clean", "Cleaning"), ("steady_state", "Steady-state distribution"),
+               ("model_copy", "Cross-validation"), ("model_copy", "Cross-validation"),
+               ("clean", "Cross-validation"), ("steady_state", "Cross-validation"),
+               ("clean", "Cross-validation"), ("steady_state", "Cross-validation")]
+NO_VALIDATION_SPANS = [s for s in BUILD_SPANS[:6] if s[0] != "model_copy"]
 
 
 def _arrays():
@@ -136,8 +142,9 @@ def _arrays():
 
 
 def _ranges(events, name):
+    # The port's ranges are the trace's ``cpu_op`` events of their name
     return sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                  if e["name"] == name and e.get("cat") == "user_annotation")
+                  if e["name"] == name and e.get("cat") == "cpu_op")
 
 
 def test_sub_spans_nest_under_their_stage():
@@ -169,15 +176,14 @@ def test_sub_spans_nest_under_their_stage():
     assert "A" in report and "x" not in report.split()
 
 
-@pytest.mark.parametrize("groups,spans", [(0, BUILD_SPANS[:3]), (2, BUILD_SPANS)],
+@pytest.mark.parametrize("groups,spans", [(0, NO_VALIDATION_SPANS), (2, BUILD_SPANS)],
                          ids=["no_validation", "validation"])
 def test_a_build_times_its_sub_stages(groups, spans):
     m = _build(_arrays(), groups=groups)
     t = m.stage_timings
-    assert [n for n, *_ in t.spans] == spans
     stages = [n for n, _s, _note in t.stages]
-    parents = [stages[st] for _n, _s, p, st in t.spans if p == -1]
-    assert parents == (["Clustering"] * 4 + ["Cross-validation"] * 2)[:len(spans)]
+    assert [(n, stages[st]) for n, _s, _p, st in t.spans] == spans
+    assert all(p == -1 for _n, _s, p, _st in t.spans)
     clustering = dict(t.self_seconds())["Clustering"]
     assert 0 <= clustering < dict((n, s) for n, s, _ in t.stages)["Clustering"]
 
@@ -209,6 +215,7 @@ def test_spans_enter_no_range_where_nothing_records(monkeypatch):
         raise AssertionError("record_function entered with no profiler")
 
     monkeypatch.setattr(torch.autograd.profiler, "record_function", no_range)
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", no_range)
     assert not tracing.active()
     with span("alone"):
         pass
@@ -219,7 +226,7 @@ def test_spans_enter_no_range_where_nothing_records(monkeypatch):
     m = _build(_arrays(), groups=2)
     assert not tracing.active()
     assert list(col.spans) == ["collected"] and len(col.spans["collected"]) == 1
-    assert [n for n, *_ in m.stage_timings.spans] == BUILD_SPANS
+    assert [n for n, *_ in m.stage_timings.spans] == [n for n, _st in BUILD_SPANS]
 
 
 def test_collect_changes_no_build_output():
@@ -228,7 +235,8 @@ def test_collect_changes_no_build_output():
         traced = _build(_arrays(), groups=2)
     assert tracing.collector() is None
     assert {n: len(v) for n, v in col.spans.items()} == {
-        "featurize": 1, "cluster_fold": 1, "discretize": 1, "model_copy": 3}
+        "featurize": 1, "cluster_fold": 1, "discretize": 1, "model_copy": 3,
+        "clean": 3, "steady_state": 3}
     np.testing.assert_array_equal(np.concatenate(traced.dtrajs),
                                   np.concatenate(plain.dtrajs))
     np.testing.assert_array_equal(traced.fluxMatrixRaw, plain.fluxMatrixRaw)
@@ -329,3 +337,116 @@ def test_the_cpu_route_under_collect_spans_its_check_alone(monkeypatch):
     assert torch.equal(out, 2 * a) and len(_graph._CACHE) == before
     assert {n: len(v) for n, v in col.spans.items()} == {"graph.lookup": 1}
     assert col.device_ms == {} and col.counts == {}
+
+
+# ------------------------------------------------------------------ counts
+
+def test_count_adds_to_the_innermost_collect_block():
+    tracing.count("lost", 5)  # no block open: recorded nowhere
+    with collect() as outer:
+        tracing.count("n", 2)
+        with collect() as inner:
+            tracing.count("n", 3)
+            tracing.count("m")
+        tracing.count("n", 4)
+    tracing.count("lost", 1)
+    assert outer.counts == {"n": 6} and inner.counts == {"n": 3, "m": 1}
+
+
+def _batch(rng, sizes):
+    """Rows of 2 features around each bin's own offset, ``sizes[b]`` of bin
+    ``b``, and their bins."""
+    bins = np.repeat(np.arange(len(sizes)), sizes)
+    return (bins[:, None] * 10.0 + rng.normal(size=(len(bins), 2))).astype(
+        np.float32), bins
+
+
+# Batches of per-bin row counts, with the bin batches each family runs:
+# a bin seeds once it has k rows in one batch (the host family under
+# HOST_BATCH_THRESHOLD rows, else the device family); a bin seeded before
+# the batch is updated (the family by the batch's live rows); a bin short
+# of k rows and not seeded is not worked
+FOLDS = {
+    "host_family": ([[5, 2, 4, 0], [3, 3, 0, 1], [2, 2, 2, 2]], (2 + 2 + 3, 0)),
+    "device_family": ([[4096, 5, 0], [4000, 200, 0], [5, 0, 10]], (1 + 0 + 2, 1 + 2 + 0)),
+}
+
+
+@pytest.mark.parametrize("batches,expect", FOLDS.values(), ids=FOLDS.keys())
+def test_fold_counts_add_up_to_the_bin_batches(batches, expect):
+    from msm_we_tpu_torch.ops.stratified import StratifiedKmeans
+
+    rng = np.random.default_rng(3)
+    strat = StratifiedKmeans(len(batches[0]), 3, 2, seed=1, device="cpu")
+    with collect() as col:
+        for sizes in batches:
+            strat.partial_fit(*_batch(rng, sizes))
+    host, device = expect
+    assert (col.counts["fold_host_bins"], col.counts["fold_device_bins"]) == (host, device)
+    worked = sum(sum(1 for n, ready in zip(sizes, seen) if n and (ready or n >= 3))
+                 for sizes, seen in zip(batches, _seeded_before(batches, 3)))
+    assert host + device == worked
+    assert strat.seeded_by_family["device"] <= device
+
+
+def _seeded_before(batches, k):
+    """For each batch, which bins were seeded before it."""
+    seen, out = [False] * len(batches[0]), []
+    for sizes in batches:
+        out.append(list(seen))
+        seen = [s or n >= k for s, n in zip(seen, sizes)]
+    return out
+
+
+@pytest.mark.parametrize("groups", [0, 1, 2])
+def test_clean_and_steady_state_span_the_model_and_each_group(groups):
+    with collect() as col:
+        m = _build(_arrays(), groups=groups)
+    t = m.stage_timings
+    stages = [n for n, _s, _note in t.stages]
+    seconds = dict((n, s) for n, s, _note in t.stages)
+    for name, own in (("clean", "Cleaning"), ("steady_state", "Steady-state distribution")):
+        where = [stages[st] for n, _s, _p, st in t.spans if n == name]
+        assert where == [own] + ["Cross-validation"] * groups
+        assert len(col.spans[name]) == 1 + groups
+        first = next(s for n, s, _p, _st in t.spans if n == name)
+        assert 0 <= first <= seconds[own]
+    assert len(m.validation_models or []) == groups
+
+
+def test_a_build_counts_its_fold_under_collect():
+    plain = _build(_arrays(), groups=2)
+    with collect() as col:
+        m = _build(_arrays(), groups=2)
+    strat = m._strat
+    assert col.counts["fold_host_bins"] >= strat.seeded_by_family["host"]
+    assert col.counts["fold_device_bins"] >= strat.seeded_by_family["device"]
+    assert col.counts["fold_gathered_iterations"] >= 0
+    assert col.counts["fold_remapped_bins"] >= 0
+    np.testing.assert_array_equal(m.pSS, plain.pSS)
+
+
+# Per-iteration rows of each of 4 WE bins at k = 3, with the iterations the
+# fill batches hold after their first and the bins remapped when the data
+# ran out: each iteration filling the bins it reaches, then bins that need
+# two iterations to fill and a last batch that runs out with two unfilled
+PLANS = {
+    "each_iteration_fills": ([[3, 4, 0, 0], [5, 3, 3, 0], [0, 3, 0, 6]], (0, 0)),
+    "gathered_and_ran_out": (
+        [[2, 1, 0, 0], [1, 2, 0, 0], [3, 0, 0, 3], [0, 1, 0, 0], [0, 1, 1, 3]], (2, 2)),
+}
+
+
+@pytest.mark.parametrize("sizes,expect", PLANS.values(), ids=PLANS.keys())
+def test_the_batch_plan_counts_gathered_iterations_and_remapped_bins(sizes, expect):
+    from msm_we_tpu_torch.discretization import build_batch_plan
+
+    bins = np.concatenate([np.repeat(np.arange(4), n) for n in sizes])
+    offsets = np.concatenate([[0], np.cumsum([sum(n) for n in sizes])])
+    mapper = RectilinearBinMapper([np.linspace(0, 4, 5)])
+    with collect() as col:
+        batches, delegated = build_batch_plan(
+            mapper, list(range(1, len(sizes) + 1)), 3, np.arange(len(bins)), bins, offsets)
+    assert (col.counts["fold_gathered_iterations"], col.counts["fold_remapped_bins"]) == expect
+    assert col.counts["fold_gathered_iterations"] == len(sizes) - len(batches)
+    assert sum(delegated) == (expect[1] > 0)
