@@ -174,9 +174,16 @@ Phases, each printing one JSON line:
    passes), its device ms and bound, the f32 tail beside it
    (``_tail_rounds``), and the row kernels' device ms and byte floors at 0
    and 16 rounds (``row_kernels``).
-12. ``route``: the ``two_transform`` step's assignment and flux by H2 and
-   by the bin-grouped route (features-only H1, then H3 on H2's
-   ``c2adj``) at 1 to 128 bins of 25 centers (``ROUTE_BINS``)
+12. ``route``: first the ``transform_stream`` line: the features-only
+   transform of the main path's two raw sets by the streaming kernel
+   (``transform_features``, both sets in one launch and one set alone)
+   against the two features-only H1 launches it replaced, bitwise equal,
+   each form's device ms by the profiler and a replay of its own CUDA
+   graph by events beside its byte bound, the grouped route's graph with
+   either transform, and the ptxas lines of the new kernel. Then the
+   ``two_transform`` step's assignment and flux by H2 and by the
+   bin-grouped route (the streaming transform, then H3 on H2's ``c2adj``)
+   at 1 to 128 bins of 25 centers (``ROUTE_BINS``, or ``--route-bins``)
    (``make_problem()``'s rows): ids and the dyadic flux bitwise equal,
    each route's device ms a replay of its own CUDA graph by events, the
    route ``entry.grouped_route`` takes; the sweep that set
@@ -207,6 +214,11 @@ KERNEL_INFO = {
     "transform_assign": dict(
         pallas="H2", replaces="msm_we_tpu/ops/pallas_kernels.py:377",
         source="msm_we_tpu_torch/csrc/stratified_assign.cu"),
+    # H1's transform alone, both raw sets a launch; timed by the route
+    # phase's transform_stream line
+    "transform_features": dict(
+        pallas="none", replaces="msm_we_tpu/ops/pallas_kernels.py:546",
+        source="msm_we_tpu_torch/csrc/transform_features.cu"),
     "assign_flux": dict(
         pallas="H3", replaces="msm_we_tpu/ops/pallas_kernels.py:248",
         source="msm_we_tpu_torch/csrc/assign_flux.cu"),
@@ -484,12 +496,15 @@ def phase_kernels(args, summary):
                       reps)
         dms = device_ms(lambda: sa.transform_assign_child(*h1, emit_features=True),
                         "stratified_assign_kernel", reps)
-        # The features-only launch (the dedup tier's): the transform alone
-        g_f = sa.transform_assign_child(*h1, features_only=True)[1]
-        require(torch.equal(g_f, g_k), f"H1 [{regime}] features-only launch differs")
+        # The features alone (the hot step's grouped route and dedup tier):
+        # the streaming kernel up to 32 features, else H1's features-only
+        # launch
+        g_f = sa.transform_features(raw_c, None, proj)[0]
+        require(torch.equal(g_f, g_k), f"H1 [{regime}] features-only transform differs")
         del g_f
-        fdms = device_ms(lambda: sa.transform_assign_child(*h1, features_only=True),
-                         "stratified_assign_kernel", reps)
+        fdms = device_ms(lambda: sa.transform_features(raw_c, None, proj),
+                         "transform_features_kernel" if sa.features_stream_fits(D, Fx)
+                         else "stratified_assign_kernel", reps)
         mm = cuda_ms(lambda: torch.mm(raw_c, proj), reps)
         bound = _bound([raw_c, cb, s["basis_c"], s["target_c"], mean, proj, *bk,
                         idx_k, g_k], 2 * N * D * Fx + 2 * pairs_c * Fx)
@@ -771,15 +786,15 @@ def _build_parity(data, scan):
 
 
 # The wrappers each graph of the main path calls (a two_transform step
-# whose bank takes the bin-grouped route, ``entry.grouped_route``: H1 and H3),
-# and the tail phase's 128-bin step (3,202 states: the float64 tail's row
-# kernels)
+# whose bank takes the bin-grouped route, ``entry.grouped_route``: the
+# streaming transform and H3), and the tail phase's 128-bin step (3,202
+# states: the float64 tail's row kernels)
 GRAPH_KERNELS = {"two_transform": ("transform_assign", "steady_tail"),
-                 "two_transform_grouped": ("transform_assign_child", "assign_flux",
+                 "two_transform_grouped": ("transform_features", "assign_flux",
                                            "steady_tail"),
-                 "dedup": ("transform_assign_child", "assign_flux", "steady_tail"),
+                 "dedup": ("transform_features", "assign_flux", "steady_tail"),
                  "entry": ("assign_flux", "steady_tail"),
-                 "bins128": ("transform_assign_child", "assign_flux",
+                 "bins128": ("transform_features", "assign_flux",
                              "tail_transition", "tail_renorm")}
 
 
@@ -1160,6 +1175,111 @@ def _peak_mb(fn):
     return (torch.cuda.max_memory_allocated() - base) / 1e6
 
 
+def _ptxas_of(kernel):
+    """The compiler's register and spill lines for each instantiation of
+    ``kernel`` in this process's build log (empty where the library was
+    loaded, not built)."""
+    from msm_we_tpu_torch.ops import _ext
+
+    out, cur = {}, None
+    for ln in _ext.build_info.get("log", "").splitlines():
+        if "Compiling entry function" in ln:
+            cur = ln.split("'")[1] if kernel in ln else None
+            if cur is not None:
+                out[cur] = []
+        elif cur is not None and ("registers" in ln or "spill" in ln):
+            out[cur].append(ln.strip())
+    return out
+
+
+def _stream_transform(args, summary):
+    """The main path's features-only transform (``make_problem()``: two
+    sets of 102,400 x 900 raw rows, P to 30 features) by the streaming
+    kernel, both sets in one launch and one set alone, against the two
+    features-only H1 launches it replaced (bitwise equal). Each form's
+    device ms by the profiler and as a replay of its own CUDA graph (the
+    median of five turns of 20 replays queued behind a spin, the forms
+    alternating), beside its byte bound (rows and P read, features written
+    once); the 10-bin grouped route's graph with either transform."""
+    import numpy as np
+    import torch
+
+    from msm_we_tpu_torch import _graph, entry
+    from msm_we_tpu_torch.ops import stratified_assign as sa
+    from msm_we_tpu_torch.testing import make_problem
+
+    dev = torch.device("cuda")
+    s = entry.stage_problem(make_problem(), "two_transform", dev)
+    # Dyadic weights: the f32 flux is exact in any order of the atomics
+    w = np.random.default_rng(19).integers(1, 17, len(s["w"])) / 16.0
+    s["w"] = torch.as_tensor(w, dtype=torch.float32, device=dev)
+    rp, rc, comp = s["raw_parent"], s["raw_child"], s["comp"]
+    N, D = rc.shape
+    F = comp.shape[1]
+    bank = (s["centers"], s["center_bin"], s["valid"])
+    S = s["n_states"]
+    require(sa.features_stream_fits(D, F), "the main path's shape does not stream")
+
+    def h1(raw):  # H1's features-only launch, as the parent ran it
+        g = torch.empty((N, F), dtype=torch.float32, device=dev)
+        sa._h1_features(raw, comp, g)
+        return g
+
+    rows = (s["pbins"], s["cbins"], s["w"], s["basis_p"], s["basis_c"],
+            s["target_c"])
+    a2 = sa.c2adj(s["mean"], comp, s["centers"]).contiguous()
+    forms = {
+        "stream_both": lambda: sa.transform_features(rp, rc, comp),
+        "stream_one": lambda: sa.transform_features(rc, None, comp),
+        "h1_pair": lambda: (h1(rp), h1(rc)),
+        "h1_one": lambda: h1(rc),
+        "grouped_stream": lambda: entry._two_transform(s, True),
+        "grouped_h1": lambda: sa.assign_flux(h1(rp), h1(rc), *rows, *bank, S, c2=a2),
+    }
+    (gp, gc), (hp, hc) = forms["stream_both"](), forms["h1_pair"]()
+    require(torch.equal(gp, hp) and torch.equal(gc, hc),
+            "the streaming transform differs from H1's features")
+    require(torch.equal(forms["stream_one"]()[0], hc),
+            "the streaming transform of one set differs from H1's features")
+    new, old = forms["grouped_stream"](), forms["grouped_h1"]()
+    require(all(torch.equal(x, y) for x, y in zip(new, old)),
+            "the grouped route's ids or flux moved with the streaming transform")
+    del gp, gc, hp, hc, new, old
+    graphs = {name: _graph.capture(fn, (), dev) for name, fn in forms.items()}
+    times = {name: [] for name in forms}
+    names = list(forms)
+    for turn in range(5):
+        for name in (names if turn % 2 == 0 else names[::-1]):
+            times[name].append(_queued_replay_ms(graphs[name].launch, 20))
+    del graphs
+    feats = torch.empty((N, F), dtype=torch.float32, device=dev)
+    one_bound = _bound([rc, comp, feats], 2 * N * D * F)
+    both_bound = _bound([rp, rc, comp, feats, feats], 4 * N * D * F)
+    kernel = {"stream_both": "transform_features_kernel",
+              "stream_one": "transform_features_kernel",
+              "h1_pair": "stratified_assign_kernel",
+              "h1_one": "stratified_assign_kernel"}
+    line = dict(phase="transform_stream", n=int(N), D=int(D), F=int(F),
+                bitwise=True, grouped_ids_flux_bitwise=True,
+                one_bound_ms=one_bound[0], one_bound_by=one_bound[1],
+                both_bound_ms=both_bound[0], both_bound_by=both_bound[1],
+                ptxas=_ptxas_of("transform_features_kernel"))
+    for name in forms:
+        line[name + "_graph_ms"] = _median(times[name])
+        line[name + "_graph_ms_all"] = times[name]
+    for name, sym in kernel.items():
+        line[name + "_kernel_ms"] = device_ms(forms[name], sym, args.reps)
+    for name, bound in (("stream_both", both_bound), ("stream_one", one_bound),
+                        ("h1_pair", both_bound), ("h1_one", one_bound)):
+        line[name + "_byte_share"] = bound[0] / line[name + "_graph_ms"]
+    emit(line)
+    summary["transform_features"] = dict(
+        ms=line["stream_both_graph_ms"], kernel_ms=line["stream_both_kernel_ms"],
+        bound_ms=both_bound[0], bound_by=both_bound[1], max_abs_err=0.0)
+    del s, forms, feats
+    torch.cuda.empty_cache()
+
+
 def phase_route(args, summary):
     """The ``two_transform`` step's assignment and flux by both routes
     (``entry._two_transform``): H2 alone, and the bin-grouped route (two
@@ -1174,17 +1294,19 @@ def phase_route(args, summary):
     (bytes over 3.35 TB/s or f32 FLOPs over 67 TFLOP/s; the grouped route
     also writes and reads the features once) and the memory it holds above
     the staged problem. The crossover sets
-    ``entry.GROUPED_MIN_OFF_BIN``."""
+    ``entry.GROUPED_MIN_OFF_BIN``. The ``transform_stream`` line comes
+    first (:func:`_stream_transform`)."""
     import numpy as np
     import torch
 
     from msm_we_tpu_torch import _graph, entry
     from msm_we_tpu_torch.testing import make_problem
 
+    _stream_transform(args, summary)
     dev = torch.device("cuda")
     rng = np.random.default_rng(19)
     lines = []
-    for n_bins in ROUTE_BINS:
+    for n_bins in args.route_bins:
         p = make_problem(n_bins=n_bins)
         s = entry.stage_problem(p, "two_transform", dev)
         del p
@@ -1228,7 +1350,7 @@ def phase_route(args, summary):
             grouped_ms=cuda_ms(routes[True], args.reps),
             h2_kernel_ms=device_ms(routes[False], "stratified_assign_kernel",
                                    args.reps),
-            grouped_transform_ms=device_ms(routes[True], "stratified_assign_kernel",
+            grouped_transform_ms=device_ms(routes[True], "transform_features_kernel",
                                            args.reps),
             grouped_h3_ms=device_ms(routes[True], "assign_flux_kernel", args.reps),
             grouped_plan_ms=device_ms(routes[True], "plan_", args.reps),
@@ -1445,11 +1567,15 @@ def phase_main(args, summary):
               clusters_after=int(model.fluxMatrix.shape[0]),
               JtargetSS=float(model.JtargetSS)))
     # H2 is off the main path where its bank takes the bin-grouped route
-    # (the kernels and route phases run it); the float64 tail's row kernels
-    # run above S_MAX only (the tail phase)
+    # (the kernels and route phases run it), and H1 where the main path's
+    # features stream (``features_stream_fits``; the kernels phase runs
+    # it); the float64 tail's row kernels run above S_MAX only (the tail
+    # phase)
     off_path = {"tail_renorm", "tail_transition"}
     if staged_grouped:
         off_path.add("transform_assign")
+    if sa.features_stream_fits(*staged["dedup"]["comp"].shape):
+        off_path.add("transform_assign_child")
     for name in sa.KERNELS:
         require(counts[name] > 0 or name in off_path,
                 f"kernel {name} never launched on the main path")
@@ -3797,7 +3923,10 @@ def main(argv=None):
     ap.add_argument("--big-segments", type=int, default=100_000,
                     help="segments per iteration of the routes phase's big "
                          "build (a multiple of 8; 101 iterations)")
+    ap.add_argument("--route-bins", default=",".join(map(str, ROUTE_BINS)),
+                    help="bin counts (of 25 centers) of the route phase's sweep")
     args = ap.parse_args(argv)
+    args.route_bins = [int(b) for b in args.route_bins.split(",") if b]
     phases = args.phases.split(",")
     unknown = set(phases) - set(PHASES)
     if unknown:

@@ -16,7 +16,10 @@
 // the PCA centering into c2adj = |c|^2 + 2 (mu P).c); the basis/target
 // overrides in flux order (basis wins); and, for two row sets, the segment
 // weight scattered into the (S, S) flux matrix. H1 can also emit g, or
-// emit g alone (idx null: no scoring, no ids).
+// emit g alone (idx null: no scoring, no ids). The hot step's
+// features-only transform now has a kernel of its own
+// (transform_features.cu: both raw sets a launch, TMA-fed, the same fmaf
+// order); idx == null here remains for F above that kernel's 32 features.
 //
 // What bounds it on an H100 (3.35 TB/s, 67 TFLOP/s f32 outside the tensor
 // cores), at 102,400 rows a set, raw 900 -> F features, K = 250:

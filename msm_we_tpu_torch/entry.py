@@ -28,8 +28,9 @@ from ._device import as_device, to_device
 from .ops.stratified_assign import (
     assign_flux,
     c2adj,
+    features_stream_fits,
     transform_assign,
-    transform_assign_child,
+    transform_features,
 )
 from .step import _discretize_and_flux, steady_state_from_flux
 from .testing import tiny_stratified_problem
@@ -149,7 +150,6 @@ def stage_problem(problem, tier, device):
     s["raw_ext"] = to_device(
         np.concatenate([p["raw_child"], p["raw_fallback"]]), dev, f32
     )
-    s["bins_ext"] = to_device(bins_ext, dev, i32)
     s["rows_ext"] = to_device(rows_ext, dev, torch.int64)
     return s
 
@@ -161,14 +161,14 @@ def hot_step(problem, tier="two_transform", device="cuda"):
     ``two_transform`` (bench tier ``two_transform``): parent and child raw
     rows through one H2 launch (transform, assign, flux-order overrides,
     f32 flux), or, where :func:`grouped_route` takes the bank (8 or more
-    bins of 25 centers), through two features-only H1 launches and one H3
-    launch that scores each row against its own bin only, with the same
-    ids. ``dedup``: one
-    features-only H1 launch transforms the
-    extended raw array once and emits its features (no scoring); parent
-    features are a gather of them (WE continuity) and one H3 launch
-    assigns both sets and scatters the flux. Any feature width. Either way
-    the steady state follows.
+    bins of 25 centers), through one features-only transform of both sets
+    (``transform_features``: the streaming kernel, or above 32 features
+    an H1 launch a set) and one H3 launch that
+    scores each row against its own bin only, with the same ids.
+    ``dedup``: one features-only transform of the extended raw array (no
+    scoring); parent features are a gather of them (WE continuity) and one
+    H3 launch assigns both sets and scatters the flux. Any feature width.
+    Either way the steady state follows.
 
     On the card the step is one CUDA graph replay: the staged problem is
     the graph's static input, captured at the first step on it (a
@@ -185,7 +185,8 @@ def _hot_step(s, tier):
     warms up, captures and replays. Called directly it runs as launches
     from Python with no graph, as on the CPU: the comparison for the
     replays on the card. In a traced capture it marks
-    ``device_ms["assign_flux"]`` and counts ``assign_grouped``."""
+    ``device_ms["assign_flux"]`` and counts ``assign_grouped`` and
+    ``features_stream`` (the features came from the streaming kernel)."""
     if s["tier"] != tier:
         raise ValueError(f"problem was staged for tier {s['tier']!r}, not {tier!r}")
     _graph.mark("assign_flux")
@@ -193,13 +194,12 @@ def _hot_step(s, tier):
     bank = (s["centers"], s["center_bin"], s["valid"])
     grouped = tier == "two_transform" and s["grouped"]
     _graph.count("assign_grouped", grouped)
+    _graph.count("features_stream", (grouped or tier == "dedup")
+                 and features_stream_fits(*s["comp"].shape))
     if tier == "two_transform":
         pidx, cidx, fm = _two_transform(s, grouped)
     else:
-        _none, g = transform_assign_child(
-            s["raw_ext"], s["bins_ext"], None, None, s["mean"], s["comp"],
-            *bank, S, features_only=True,
-        )
+        g, _none = transform_features(s["raw_ext"], None, s["comp"])
         feats = g - s["mean"] @ s["comp"]
         n = len(s["pbins"])
         fc = feats[:n]
@@ -218,8 +218,9 @@ def _hot_step(s, tier):
 def _two_transform(s, grouped):
     """The ``two_transform`` step's assignment and f32 flux on a staged
     problem: ``(pidx, cidx, fm)``. ``grouped``: the uncentered features
-    ``g = raw P`` of both sets (H1, features only), then H3 on H2's
-    ``c2adj``, so every score is H2's bit for bit; else one H2 launch."""
+    ``g = raw P`` of both sets (``transform_features``, bitwise H1's), then
+    H3 on H2's ``c2adj``, so every score is H2's bit for bit; else one H2
+    launch."""
     S = s["n_states"]
     bank = (s["centers"], s["center_bin"], s["valid"])
     rows = (s["pbins"], s["cbins"], s["w"], s["basis_p"], s["basis_c"],
@@ -227,12 +228,7 @@ def _two_transform(s, grouped):
     if not grouped:
         return transform_assign(s["raw_parent"], s["raw_child"], *rows,
                                 s["mean"], s["comp"], *bank, S)
-    _none, gp = transform_assign_child(
-        s["raw_parent"], s["pbins"], None, None, s["mean"], s["comp"], *bank,
-        S, features_only=True)
-    _none, gc = transform_assign_child(
-        s["raw_child"], s["cbins"], None, None, s["mean"], s["comp"], *bank,
-        S, features_only=True)
+    gp, gc = transform_features(s["raw_parent"], s["raw_child"], s["comp"])
     a = c2adj(s["mean"], s["comp"], s["centers"]).contiguous()
     return assign_flux(gp, gc, *rows, *bank, S, c2=a)
 

@@ -36,6 +36,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "msm_transform_assign_child": [_P] * 9 + [_I] * 5 + [_P, _P, _P],
     "msm_transform_assign": [_P] * 9 + [_I] + [_P] * 5 + [_I] * 5 + [_P] * 4,
+    "msm_transform_features": [_P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P],
     "msm_assign_flux": [_P] * 7 + [_I] + [_P] * 5 + [_I] * 4 + [_P] * 4,
     "msm_pair_plan_keys": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P],
     "msm_pair_plan_tiles": [_P, _I, _P, _I, _P, _P, _P, _I, _P],

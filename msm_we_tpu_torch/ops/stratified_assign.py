@@ -3,13 +3,15 @@
 Counterpart of ``msm_we_tpu/ops/pallas_kernels.py``. Each wrapper is named
 for its Pallas kernel and launches its kernel on CUDA tensors: H1 and H2
 of ``csrc/stratified_assign.cu``, H3 of ``csrc/assign_flux.cu``, H4 of
-``csrc/pair_assign.cu``:
+``csrc/pair_assign.cu``; the hot step's features-only transform has a
+kernel of its own, ``csrc/transform_features.cu``:
 
 ==========================  ==============================================
 ``transform_assign_child``  H1 ``fused_transform_assign_child``
 ``transform_assign``        H2 ``fused_transform_assign``
 ``assign_flux``             H3 ``fused_assign_flux``
 ``pair_assign``             H4 ``_assign_call``
+``transform_features``      H1's transform alone, both raw sets a launch
 ==========================  ==============================================
 
 What the Pallas wrappers needed for Mosaic is gone: no (n, 1) columns, no
@@ -60,6 +62,9 @@ from . import tail_rows
 __all__ = [
     "transform_assign_child",
     "transform_assign_child_plain",
+    "transform_features",
+    "transform_features_plain",
+    "features_stream_fits",
     "transform_assign",
     "transform_assign_plain",
     "assign_flux",
@@ -76,6 +81,10 @@ SEGMENTS_PER_BLOCK = 512  # segments per H3 block (kSegs in csrc/assign_flux.cu)
 TASK_ROWS = 32  # rows of one bin an H3 warp scores at once (kTaskRows)
 _NO_BIN = 2**40  # sort key of an invalid center: no row bin reaches it
 _ORDERS = {None: 0, "flux": 1, "predict": 2}
+# The streaming transform's tile widths (kTNs in csrc/transform_features.cu):
+# features a lane half holds, so a launch takes F up to 2 x 16
+STREAM_TILE_WIDTHS = (4, 8, 12, 15, 16)
+STREAM_DEPTH = 32  # raw columns a stage of its ring (kDepth)
 
 
 def c2adj(mean, proj, centers):
@@ -126,13 +135,10 @@ def _scatter_flux(pidx, cidx, w, n_states):
 
 def transform_assign_child_plain(raw, bins, basis, target, mean, proj,
                                  centers, center_bin, valid, n_states,
-                                 emit_features=False, features_only=False):
+                                 emit_features=False):
     """Plain H1: ``g = raw P``, masked nearest center on ``c2adj - 2 g.C``,
-    target then basis override (basis wins). Returns ``(idx, g or None)``;
-    with ``features_only``, ``(None, g)``."""
+    target then basis override (basis wins). Returns ``(idx, g or None)``."""
     g = raw @ proj
-    if features_only:
-        return None, g
     idx = _argmin(g, bins, centers, center_bin, valid,
                   c2=c2adj(mean, proj, centers))
     if target is not None:
@@ -140,6 +146,12 @@ def transform_assign_child_plain(raw, bins, basis, target, mean, proj,
     if basis is not None:
         idx = torch.where(basis, n_states - 2, idx)
     return idx.to(torch.int32), (g if emit_features else None)
+
+
+def transform_features_plain(raw_a, raw_b, proj):
+    """Plain streaming transform: ``(raw_a P, raw_b P or None)``, each
+    ``transform_assign_child_plain(..., emit_features=True)``'s ``g``."""
+    return raw_a @ proj, (None if raw_b is None else raw_b @ proj)
 
 
 def transform_assign_plain(raw_p, raw_c, pbins, cbins, w, basis_p, basis_c,
@@ -415,20 +427,17 @@ def _check_states(n_states):
 
 
 def transform_assign_child(raw, bins, basis, target, mean, proj, centers,
-                           center_bin, valid, n_states, emit_features=False,
-                           features_only=False):
+                           center_bin, valid, n_states, emit_features=False):
     """H1 (``fused_transform_assign_child``): child rows only. ``raw`` (N, D)
     f32 -> ``g = raw P`` -> masked nearest center on ``c2adj - 2 g.C`` ->
     target then basis override. Returns ``(idx int32 (N,), g (N, F) or
     None)``; ``g`` excludes the centering (``g - mean P`` are the features).
-    ``features_only``: the same kernel emits ``g`` and skips the scoring;
-    returns ``(None, g)``.
+    The features alone: :func:`transform_features`.
     """
     if not _on_cuda(raw, "raw"):
         return transform_assign_child_plain(
             raw, bins, basis, target, mean, proj, centers, center_bin, valid,
             n_states, emit_features=emit_features,
-            features_only=features_only,
         )
     dev = raw.device
     N, D = raw.shape
@@ -442,13 +451,12 @@ def transform_assign_child(raw, bins, basis, target, mean, proj, centers,
           optional=("basis", "target"))
     _check_rows(N)
     _check_states(n_states)
-    idx = None if features_only else torch.empty(N, dtype=torch.int32, device=dev)
+    idx = torch.empty(N, dtype=torch.int32, device=dev)
     feats = (torch.empty((N, F), dtype=torch.float32, device=dev)
-             if emit_features or features_only else None)
+             if emit_features else None)
     if N == 0:
         return idx, feats
-    # The scores' c2adj; a features-only launch reads no bank
-    a = None if features_only else c2adj(mean, proj, centers).contiguous()
+    a = c2adj(mean, proj, centers).contiguous()
     with torch.cuda.device(dev):  # launch in the tensors' device context
         err = library().msm_transform_assign_child(
             _ptr(raw), _ptr(bins), _ptr(basis), _ptr(target), _ptr(proj),
@@ -458,6 +466,84 @@ def transform_assign_child(raw, bins, basis, target, mean, proj, centers,
     check(err, "transform_assign_child")
     _count_launch(transform_assign_child)
     return idx, feats
+
+
+def _stream_width(F):
+    """The streaming transform's tile width for ``F`` features: the least
+    of ``STREAM_TILE_WIDTHS`` whose two lane halves hold them, else 0."""
+    return next((tn for tn in STREAM_TILE_WIDTHS if 2 * tn >= F), 0)
+
+
+def features_stream_fits(D, F):
+    """Whether ``transform_features`` streams (D, F): F within two of the
+    kernel's tile widths (up to 32), whose ring reserves P's columns for
+    that many features a stage; any D. Wider F takes H1's features-only
+    launch."""
+    return D >= 1 and F >= 1 and _stream_width(F) > 0
+
+
+def _h1_features(raw, proj, out):
+    """H1's features-only launch (``msm_transform_assign_child`` with no
+    ids: no bank is read, so none is passed) into ``out``; counted as an
+    H1 launch."""
+    N, D = raw.shape
+    F = proj.shape[1]
+    dev = raw.device
+    with torch.cuda.device(dev):  # launch in the tensors' device context
+        err = library().msm_transform_assign_child(
+            _ptr(raw), None, None, None, _ptr(proj), None, None, None, None,
+            N, D, F, 1, 3, None, _ptr(out), _stream(dev),
+        )
+    check(err, "transform_assign_child")
+    _count_launch(transform_assign_child)
+
+
+def transform_features(raw_a, raw_b, proj):
+    """The features-only transform of one or two raw row sets: ``(g_a,
+    g_b)`` with ``g = raw P`` f32, ``g_b`` None when ``raw_b`` is. Every
+    ``g[row, f]`` is one ascending fmaf chain over d, as H1 emits it, so
+    the features are bitwise ``transform_assign_child(...,
+    emit_features=True)``'s.
+
+    On CUDA, where :func:`features_stream_fits` (D, F), one launch of the
+    streaming kernel (``csrc/transform_features.cu``: a persistent grid
+    over both sets, a producer warp feeding TMA boxes of rows and P's
+    columns) computes both sets; wider F takes one H1 features-only launch
+    a set."""
+    if not _on_cuda(raw_a, "raw_a"):
+        return transform_features_plain(raw_a, raw_b, proj)
+    dev = raw_a.device
+    sets = [raw_a] if raw_b is None else [raw_a, raw_b]
+    if any(r.dim() != 2 for r in sets):
+        raise ValueError("raw rows must be (N, D)")
+    D = raw_a.shape[1]
+    if proj.dim() != 2:
+        raise ValueError(f"proj must be ({D}, F), got {tuple(proj.shape)}")
+    F = proj.shape[1]
+    for name, r in zip(("raw_a", "raw_b"), sets):
+        _check(r, name, torch.float32, (r.shape[0], D), dev)
+        _check_rows(r.shape[0])
+    _check(proj, "proj", torch.float32, (D, F), dev)
+    outs = [torch.empty((r.shape[0], F), dtype=torch.float32, device=dev)
+            for r in sets]
+    if not features_stream_fits(D, F):
+        for r, g in zip(sets, outs):
+            if r.shape[0] > 0:
+                _h1_features(r, proj, g)
+    elif sum(r.shape[0] for r in sets) > 0:
+        b, gb = (raw_b, outs[1]) if raw_b is not None else (None, None)
+        # P packed for the ring's stages (the kernel's first launch fills it)
+        pq = torch.empty(-(-D // STREAM_DEPTH) * STREAM_DEPTH * 2 * _stream_width(F),
+                         dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):  # launch in the tensors' device context
+            err = library().msm_transform_features(
+                _ptr(raw_a), _ptr(b), raw_a.shape[0],
+                0 if b is None else b.shape[0], _ptr(proj), D, F, _ptr(outs[0]),
+                _ptr(gb), _ptr(pq), _stream(dev),
+            )
+        check(err, "transform_features")
+        _count_launch(transform_features)
+    return outs[0], (outs[1] if raw_b is not None else None)
 
 
 def transform_assign(raw_p, raw_c, pbins, cbins, w, basis_p, basis_c,
@@ -637,6 +723,7 @@ def pair_assign(fp, fc, pbins, cbins, centers, center_bin, valid,
 KERNELS = {
     "transform_assign_child": transform_assign_child,
     "transform_assign": transform_assign,
+    "transform_features": transform_features,
     "assign_flux": assign_flux,
     "pair_assign": pair_assign,
     "steady_tail": steady_tail,
@@ -648,6 +735,7 @@ KERNELS = {
 KERNEL_SYMBOLS = {
     "transform_assign_child": "stratified_assign_kernel",
     "transform_assign": "stratified_assign_kernel",
+    "transform_features": "transform_features_kernel",
     "assign_flux": "assign_flux_kernel",
     "pair_assign": "pair_assign_kernel",
     "steady_tail": "steady_tail_kernel",

@@ -413,9 +413,9 @@ def test_a_launch_counts_only_outside_a_capture(capturing, monkeypatch):
     after = {**sa.launch_counts(), "scores": sa.pair_assign.score_launches}
     n = 0 if capturing else 1
     assert {k: after[k] - before[k] for k in after} == dict(
-        transform_assign_child=0, transform_assign=0, assign_flux=n,
-        pair_assign=n, steady_tail=0, tail_renorm=0, tail_transition=0,
-        scores=n)
+        transform_assign_child=0, transform_assign=0, transform_features=0,
+        assign_flux=n, pair_assign=n, steady_tail=0, tail_renorm=0,
+        tail_transition=0, scores=n)
     sa.pair_assign.launches -= n
     sa.pair_assign.score_launches -= n
     sa.assign_flux.launches -= n

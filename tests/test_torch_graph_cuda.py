@@ -113,11 +113,12 @@ def test_entry_replays_its_graph(cuda_device):
 
 # The wrappers each tier's step calls and their launches, by the step's
 # route (the tail kernel at 252 states; SMALL's bank of 10 bins x 25 takes
-# the bin-grouped route, ``entry.grouped_route``)
+# the bin-grouped route, ``entry.grouped_route``, whose features stream
+# through one ``transform_features`` launch, as the dedup tier's do)
 TIER_KERNELS = {"two_transform": dict(transform_assign=1, steady_tail=1),
-                "two_transform_grouped": dict(transform_assign_child=2,
+                "two_transform_grouped": dict(transform_features=1,
                                               assign_flux=1, steady_tail=1),
-                "dedup": dict(transform_assign_child=1, assign_flux=1,
+                "dedup": dict(transform_features=1, assign_flux=1,
                               steady_tail=1)}
 
 
@@ -455,13 +456,14 @@ def route_problems():
 
 
 # The wrappers a two_transform step launches, by the bank's bin count: H2
-# and the tail kernel at 6 bins; two features-only H1 launches and H3 at 10
-# and 128, with the tail kernel at 252 states and the f64 tail's row
-# kernels at 3,202 (the transition pass, and a renormalisation after each
-# of the 9 squarings and of the 16 guarded rounds of the eager warm-up)
+# and the tail kernel at 6 bins; one streaming transform of both sets and
+# H3 at 10 and 128, with the tail kernel at 252 states and the f64 tail's
+# row kernels at 3,202 (the transition pass, and a renormalisation after
+# each of the 9 squarings and of the 16 guarded rounds of the eager
+# warm-up)
 ROUTE_LAUNCHES = {6: dict(transform_assign=1, steady_tail=1),
-                  10: dict(transform_assign_child=2, assign_flux=1, steady_tail=1),
-                  128: dict(transform_assign_child=2, assign_flux=1,
+                  10: dict(transform_features=1, assign_flux=1, steady_tail=1),
+                  128: dict(transform_features=1, assign_flux=1,
                             tail_transition=1, tail_renorm=25)}
 
 
@@ -487,10 +489,11 @@ def test_bins128_grouped_replay_equals_an_eager_h2_launch(cuda_device,
 @pytest.mark.parametrize("n_bins", [6, 10, 128])
 def test_the_route_shows_in_counts_and_launches(cuda_device, route_problems,
                                                 n_bins):
-    """``counts["assign_grouped"]`` reads one a traced replay at 10 and 128
-    bins and none at 6; the warm-up's launch counts show two H1 launches
-    and H3 at 10 and 128 bins and H2 alone at 6, and a trace of the
-    replays H3's kernel only where the step is grouped."""
+    """``counts["assign_grouped"]`` and ``counts["features_stream"]`` read
+    one a traced replay at 10 and 128 bins and none at 6; the warm-up's
+    launch counts show one streaming transform and H3 at 10 and 128 bins
+    and H2 alone at 6, and a trace of the replays the streaming kernel and
+    H3's only where the step is grouped, H1/H2's only where it is not."""
     grouped = n_bins > 6
     s = stage_problem(route_problems[n_bins], "two_transform", cuda_device)
     assert s["grouped"] is grouped
@@ -501,7 +504,9 @@ def test_the_route_shows_in_counts_and_launches(cuda_device, route_problems,
     assert {k: mid[k] - before[k] for k in mid} == {
         k: ROUTE_LAUNCHES[n_bins].get(k, 0) for k in mid}
     traced = _traced_kernels(lambda: hot_step(s, "two_transform"), 3)
-    assert traced["stratified_assign_kernel"] > 0
+    assert (traced["stratified_assign_kernel"] > 0) is not grouped
+    assert (traced["transform_features_kernel"] > 0) is grouped
     assert (traced["assign_flux_kernel"] > 0) is grouped
     _outs, col = _traced_runs(lambda: hot_step(s, "two_transform"), 3)
     assert col.counts["assign_grouped"] == (3 if grouped else 0)
+    assert col.counts["features_stream"] == (3 if grouped else 0)

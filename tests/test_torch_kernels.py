@@ -452,16 +452,17 @@ def test_cuda_kernels_match_plain(problem, cuda_device):
     ref = sa.pair_assign_plain(t["fp"], t["fc"], t["pbins"], t["cbins"], *bank)
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert sa.launch_counts() == dict(dict.fromkeys(sa.KERNELS, 1),
-                                      steady_tail=0, tail_renorm=0,
-                                      tail_transition=0)
+                                      transform_features=0, steady_tail=0,
+                                      tail_renorm=0, tail_transition=0)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_bins,k", [(5, 3), (40, 3)])
 def test_cuda_grouped_scores_are_h2s(n_bins, k, cuda_device):
-    """H1's features-only transform of both raw sets, then H3 on H2's
-    ``c2adj``: bitwise H2's ids and dyadic f64 flux; ``c2=|c|^2`` is H3's
-    default; a ``c2`` of another length is refused."""
+    """The features-only transform of both raw sets (one streaming launch),
+    then H3 on H2's ``c2adj``: bitwise H2's ids and dyadic f64 flux, and
+    the features bitwise H1's emitted ones; ``c2=|c|^2`` is H3's default; a
+    ``c2`` of another length is refused."""
     p = _problem(N=3000, n_bins=n_bins, k=k)
     r = _raw(p, 37, seed=11)
     t = to_torch(p, cuda_device)
@@ -472,12 +473,14 @@ def test_cuda_grouped_scores_are_h2s(n_bins, k, cuda_device):
     rows = (t["pbins"], t["cbins"], w64, t["basis_p"], t["basis_c"], t["target_c"])
     ref = sa.transform_assign(rt["raw_p"], rt["raw_c"], *rows, rt["mean"],
                               rt["proj"], *bank, S)
-    gp, gc = (sa.transform_assign_child(rt[raw], t[bins], None, None, rt["mean"],
-                                        rt["proj"], *bank, S, features_only=True)[1]
-              for raw, bins in (("raw_p", "pbins"), ("raw_c", "cbins")))
+    gp, gc = sa.transform_features(rt["raw_p"], rt["raw_c"], rt["proj"])
     a2 = sa.c2adj(rt["mean"], rt["proj"], t["centers"]).contiguous()
     got = sa.assign_flux(gp, gc, *rows, *bank, S, c2=a2)
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    hp, hc = (sa.transform_assign_child(rt[raw], t[bins], None, None, rt["mean"],
+                                        rt["proj"], *bank, S, emit_features=True)[1]
+              for raw, bins in (("raw_p", "pbins"), ("raw_c", "cbins")))
+    assert torch.equal(gp, hp) and torch.equal(gc, hc)
     c2 = (t["centers"] * t["centers"]).sum(1)
     got = sa.assign_flux(gp, gc, *rows, *bank, S, c2=c2)
     ref = sa.assign_flux(gp, gc, *rows, *bank, S)

@@ -113,9 +113,9 @@ def test_features_only_returns_the_emitted_features():
     t = to_torch(p)
     args = (t["raw_c"], t["cbins"], None, None, t["mean"], t["proj"], *_bank(t),
             p["n_states"])
-    ids, g = sa.transform_assign_child(*args, features_only=True)
+    g, none = sa.transform_features(t["raw_c"], None, t["proj"])
     _ids, g_emit = sa.transform_assign_child(*args, emit_features=True)
-    assert ids is None
+    assert none is None
     assert torch.equal(g, g_emit)
     assert torch.equal(g, t["raw_c"] @ t["proj"])
 
@@ -181,12 +181,13 @@ def test_cuda_h1_h3_match_plain_at_the_edges(N, D, F, bank_shape, view, cuda_dev
     w64 = t["w"].double()
     sa.reset_launch_counts()
 
-    # H1 with features, and features only
+    # H1 with features, and the features alone (the streaming kernel up to
+    # 32 features, else H1's features-only launch)
     h1 = (t["raw_c"], t["cbins"], t["basis_c"], t["target_c"], t["mean"],
           t["proj"], *_bank(t), S)
     idx, g = sa.transform_assign_child(*h1, emit_features=True)
     ridx, rg = sa.transform_assign_child_plain(*h1, emit_features=True)
-    none, g_only = sa.transform_assign_child(*h1, features_only=True)
+    g_only, none = sa.transform_features(t["raw_c"], None, t["proj"])
     torch.cuda.synchronize()
     assert none is None and torch.equal(g_only, g)
     torch.testing.assert_close(g, rg, rtol=1e-5, atol=1e-5)
@@ -220,5 +221,8 @@ def test_cuda_h1_h3_match_plain_at_the_edges(N, D, F, bank_shape, view, cuda_dev
     pp, pc = sa.pair_assign(t["fp"], t["fc"], t["pbins"], t["cbins"], *_bank(t))
     assert torch.equal(hp, pp) and torch.equal(hc, pc)
     counts = sa.launch_counts()
-    assert counts["transform_assign_child"] == 2 and counts["transform_assign"] == 1
+    streams = sa.features_stream_fits(D, F)
+    assert counts["transform_features"] == int(streams)
+    assert counts["transform_assign_child"] == 2 - streams
+    assert counts["transform_assign"] == 1
     assert counts["assign_flux"] == 2 and counts["pair_assign"] == 1
