@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ._logging import log
-from .tracing import span
+from .tracing import count, span
 
 
 def _pad_rows_to(a, n_pad, fill):
@@ -231,7 +231,10 @@ def featurize_all(model, force=False):
     With ``dedup_coordinates`` (default "auto"), parent features are
     gathered from the previous iteration's child features instead of
     re-read and re-featurized -- see :func:`featurize_dedup`. The work (not
-    a cached return) is the span ``featurize``.
+    a cached return) is the span ``featurize``; it counts the parent rows
+    it gathered (``parent_rows_gathered``) and projected
+    (``parent_rows_projected``), and ``dedup_fallback`` where the gather's
+    checks failed.
     """
     if model._features is not None and not force:
         return model._features
@@ -254,14 +257,15 @@ def _featurize_all(model):
             "featurizing parent frames directly."
         )
     if use_dedup:
-        feats = featurize_dedup(model, verify=(mode == "auto"))
+        feats, failed = _featurize_dedup(model, verify=(mode == "auto"))
         if feats is not None:
             model._features = feats
             return feats
+        count("dedup_fallback")
         log.warning(
-            "Gathered parent features did not bitwise-match directly "
-            "featurized samples (non-row-independent featurizer?); "
-            "falling back to direct parent featurization."
+            f"Gathered parent features did not bitwise-match directly "
+            f"featurized ones at the {failed} (non-row-independent "
+            "featurizer?); falling back to direct parent featurization."
         )
 
     red_parent = StreamingReducer(model.reduceCoordinates, model.FEATURE_CHUNK)
@@ -279,6 +283,7 @@ def _featurize_all(model):
         iter_of.append(np.full(len(weights), iteration))
         offsets.append(offsets[-1] + len(weights))
 
+    count("parent_rows_projected", offsets[-1])
     model._features = FeatureSet(
         parent=red_parent.finish().astype(np.float32),
         child=red_child.finish().astype(np.float32),
@@ -304,6 +309,14 @@ def featurize_dedup(model, verify=True):
     rows is re-featurized directly from their own frame-0 coords and must
     match bitwise; returns None on mismatch (caller falls back).
     """
+    return _featurize_dedup(model, verify)[0]
+
+
+def _featurize_dedup(model, verify):
+    """:func:`featurize_dedup`'s ``(features, None)``, or ``(None, check)``
+    naming the check that failed: ``"pre-flight"`` (a block's first rows
+    featurized alone) or ``"sample"`` (gathered rows featurized from their
+    own frame 0)."""
     ds = model._dataset
     red_child = StreamingReducer(model.reduceCoordinates, model.FEATURE_CHUNK)
     p0s, p1s, ws, iter_of, nan_blocks = [], [], [], [], []
@@ -326,7 +339,7 @@ def featurize_dedup(model, verify=True):
             whole = np.asarray(model.reduceCoordinates(block))
             sub = np.asarray(model.reduceCoordinates(block[:k]))
             if not np.array_equal(whole[:k], sub):
-                return None
+                return None, "pre-flight"
         d = ds.iter_data(iteration)
         nan_blocks.append(np.isnan(child).any(axis=tuple(range(1, child.ndim))))
         # In-place NaN fill is safe: the block is a fresh h5 read, and
@@ -403,7 +416,7 @@ def featurize_dedup(model, verify=True):
             red_v.add(np.nan_to_num(raw, copy=False))
         direct = red_v.finish().astype(np.float32)
         if not np.array_equal(direct, child_feats[src_all[sample]]):
-            return None
+            return None, "sample"
 
     # The NaN -> weight-0 convention (reference _data.py:303-313), with
     # parent NaN-ness propagated through the gather
@@ -419,6 +432,8 @@ def featurize_dedup(model, verify=True):
             )
         weights[bad] = 0.0
 
+    count("parent_rows_gathered", len(gathered))
+    count("parent_rows_projected", len(fb_rows_all))
     return FeatureSet(
         dict(
             parent=None,  # lazy: materialized from the recipe on demand
@@ -432,7 +447,7 @@ def featurize_dedup(model, verify=True):
         parent_src=src_all,
         parent_fb_rows=fb_rows_all,
         parent_fb_feats=fb_feats,
-    )
+    ), None
 
 
 def _device_parent_from_child(child_dev, feats):

@@ -708,6 +708,7 @@ class modelWE:
     moments (TICA/VAMP) are f32 products on the device (combined across
     batches in f64)."""
 
+    @span("reduce_moments")
     def dimReduce(self, first_iter=1, first_rough_iter=None, last_iter=None,
                   rough_stride=10, fine_stride=1, variance_cutoff=0.95,
                   use_weights=True, progress_bar=None, device_moments=None):
@@ -716,7 +717,8 @@ class modelWE:
         of the child frames; ``tica``/``vamp`` from (parent, child) pairs,
         WE-weighted for ``tica`` only; ``batch-pca`` from the moments of
         both frames, keeping every component. ``device_moments`` None picks
-        the device f32 moments from ``DEVICE_MOMENTS_MIN_DIM`` features."""
+        the device f32 moments from ``DEVICE_MOMENTS_MIN_DIM`` features. The
+        accumulation and the eigensolve are the span ``reduce_moments``."""
         if last_iter is None:
             last_iter = self.maxIter
         method = self.dimReduceMethod

@@ -8,7 +8,11 @@ float64. The default per-batch path is float64 numpy, a copy of the JAX
 package's (bitwise parity); ``dtype=np.float32`` centers each batch in
 f64 on the host, then runs the d x d products as IEEE f32 products on a
 torch device (``_device.py`` pins out TF32). The eigenproblems are host
-f64. A fitted transform projects in host numpy below
+f64. A fitted PCA transform picks its projection once, from its width and
+device: on CUDA, from ``_KERNEL_MIN_ROW_FLOPS`` a row, the streaming
+features kernel (``stratified_assign.transform_features``), whose features
+of a row do not depend on the other rows of the call; else host numpy. A
+TICA/VAMP transform projects in host numpy below
 ``_DEVICE_TRANSFORM_MIN_FLOPS`` and with an f32 ``torch.matmul`` on its
 device above it.
 """
@@ -19,6 +23,8 @@ import torch
 
 from .._device import as_device
 from .._logging import log
+from ..tracing import span
+from .stratified_assign import transform_features
 
 __all__ = [
     "IdentityCoordinates",
@@ -31,6 +37,10 @@ __all__ = [
 # Below this many flops a projection runs in host numpy: a device round
 # trip dwarfs the product for small chunks
 _DEVICE_TRANSFORM_MIN_FLOPS = 5e7
+# From this many flops a row (2 d F) a fitted PCA transform on CUDA
+# projects with the features kernel: a featurization chunk of 8,192 such
+# rows is ~5e7 flops, where the device beats host numpy
+_KERNEL_MIN_ROW_FLOPS = 6e3
 
 
 def _center_f64(X, w, ws):
@@ -134,7 +144,14 @@ class MomentAccumulator:
 
 
 class PCAModel:
-    """Fitted PCA transform: ``(x - mean) @ components.T``."""
+    """Fitted PCA transform: ``(x - mean) @ components.T``.
+
+    ``route`` is decided once, here: ``"kernel"`` on a CUDA device where a
+    row costs ``_KERNEL_MIN_ROW_FLOPS`` or more (the features kernel: one
+    ascending fmaf chain over d a feature, so a row's features are bitwise
+    the same whatever rows share the call, which the gathered parent
+    features of ``features.featurize_dedup`` need), else ``"host"`` (numpy).
+    Each ``transform`` is the span ``project``."""
 
     def __init__(self, mean, components, explained_variance, covariance=None,
                  device="cpu"):
@@ -153,14 +170,17 @@ class PCAModel:
         ).astype(np.float32)
         total_var = float(np.sum(self.explained_variance_)) or 1.0
         self._fold_ok = float(self.mean_ @ self.mean_) <= 1e6 * total_var
+        wide = 2.0 * self._f32comp.size >= _KERNEL_MIN_ROW_FLOPS
+        self.route = "kernel" if self.device.type == "cuda" and wide else "host"
 
     def _project(self, flat):
-        if 2.0 * flat.size * self.n_components < _DEVICE_TRANSFORM_MIN_FLOPS:
+        if self.route == "host":
             return flat @ self._f32comp
-        x = torch.as_tensor(flat, device=self.device)
-        c = torch.as_tensor(self._f32comp, device=self.device)
-        return (x @ c).cpu().numpy()
+        x = torch.as_tensor(flat, device=self.device).contiguous()
+        c = torch.as_tensor(np.ascontiguousarray(self._f32comp), device=self.device)
+        return transform_features(x, None, c)[0].cpu().numpy()
 
+    @span("project")
     def transform(self, coords):
         if not self._fold_ok:
             # Center in f64 before the f32 cast

@@ -127,14 +127,24 @@ def test_profile_dir_trace_survives_a_failing_build(tmp_path):
 
 # The sub-spans of a build with block validation and the stage each opens
 # in (``model_copy``: the post-clustering copy and one a validation group;
-# ``clean`` and ``steady_state``: the model's, then each group's)
-BUILD_SPANS = [("featurize", "Clustering"), ("cluster_fold", "Clustering"),
+# ``clean`` and ``steady_state``: the model's, then each group's), at the
+# top level: every nested span is a ``project`` inside ``featurize``
+BUILD_SPANS = [("reduce_moments", "Dimensionality reduction"),
+               ("featurize", "Clustering"), ("cluster_fold", "Clustering"),
                ("discretize", "Clustering"), ("model_copy", "Clustering"),
                ("clean", "Cleaning"), ("steady_state", "Steady-state distribution"),
                ("model_copy", "Cross-validation"), ("model_copy", "Cross-validation"),
                ("clean", "Cross-validation"), ("steady_state", "Cross-validation"),
                ("clean", "Cross-validation"), ("steady_state", "Cross-validation")]
-NO_VALIDATION_SPANS = [s for s in BUILD_SPANS[:6] if s[0] != "model_copy"]
+NO_VALIDATION_SPANS = [s for s in BUILD_SPANS[:7] if s[0] != "model_copy"]
+
+
+def _top_level(spans):
+    """The names of the top-level ``spans`` (a ``StageTimer``'s), after
+    checking that each nested one is a ``project`` inside ``featurize``."""
+    nested = [(n, spans[p][0]) for n, _s, p, _st in spans if p != -1]
+    assert nested and set(nested) == {("project", "featurize")}, nested
+    return [(n, st) for n, _s, p, st in spans if p == -1]
 
 
 def _arrays():
@@ -182,8 +192,7 @@ def test_a_build_times_its_sub_stages(groups, spans):
     m = _build(_arrays(), groups=groups)
     t = m.stage_timings
     stages = [n for n, _s, _note in t.stages]
-    assert [(n, stages[st]) for n, _s, _p, st in t.spans] == spans
-    assert all(p == -1 for _n, _s, p, _st in t.spans)
+    assert [(n, stages[st]) for n, st in _top_level(t.spans)] == spans
     clustering = dict(t.self_seconds())["Clustering"]
     assert 0 <= clustering < dict((n, s) for n, s, _ in t.stages)["Clustering"]
 
@@ -226,7 +235,8 @@ def test_spans_enter_no_range_where_nothing_records(monkeypatch):
     m = _build(_arrays(), groups=2)
     assert not tracing.active()
     assert list(col.spans) == ["collected"] and len(col.spans["collected"]) == 1
-    assert [n for n, *_ in m.stage_timings.spans] == [n for n, _st in BUILD_SPANS]
+    assert [n for n, _st in _top_level(m.stage_timings.spans)] == [
+        n for n, _st in BUILD_SPANS]
 
 
 def test_collect_changes_no_build_output():
@@ -235,8 +245,10 @@ def test_collect_changes_no_build_output():
         traced = _build(_arrays(), groups=2)
     assert tracing.collector() is None
     assert {n: len(v) for n, v in col.spans.items()} == {
-        "featurize": 1, "cluster_fold": 1, "discretize": 1, "model_copy": 3,
-        "clean": 3, "steady_state": 3}
+        "reduce_moments": 1, "featurize": 1, "cluster_fold": 1, "discretize": 1,
+        "model_copy": 3, "clean": 3, "steady_state": 3,
+        # The child rows, the pre-flight's two calls, the recycled parents, the sample
+        "project": 5}
     np.testing.assert_array_equal(np.concatenate(traced.dtrajs),
                                   np.concatenate(plain.dtrajs))
     np.testing.assert_array_equal(traced.fluxMatrixRaw, plain.fluxMatrixRaw)
