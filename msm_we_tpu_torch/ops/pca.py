@@ -5,14 +5,17 @@ Counterpart of ``MomentAccumulator``, ``PCAModel``,
 ``msm_we_tpu/ops/pca.py``. Moments are accumulated per batch and combined
 across batches with Chan's pairwise update (and its lagged-pair form) in
 float64. The default per-batch path is float64 numpy, a copy of the JAX
-package's (bitwise parity); ``dtype=np.float32`` centers each batch in
-f64 on the host, then runs the d x d products as IEEE f32 products on a
-torch device (``_device.py`` pins out TF32). The eigenproblems are host
-f64. A fitted PCA transform picks its projection once, from its width and
-device: on CUDA, from ``_KERNEL_MIN_ROW_FLOPS`` a row, the streaming
-features kernel (``stratified_assign.transform_features``), whose features
-of a row do not depend on the other rows of the call; else host numpy. A
-TICA/VAMP transform projects in host numpy below
+package's (bitwise parity). ``dtype=np.float32`` runs the d x d products
+as IEEE f32 products on a torch device (``_device.py`` pins out TF32):
+``MomentAccumulator`` keeps its running sums there, centering each batch
+in f64 and combining it in f64 on the device, so the host reads M2 once,
+at ``finalize``; ``PairMomentAccumulator`` centers and combines on the
+host. The eigenproblems are host f64. A fitted PCA transform picks its
+projection once, from its width and device: on CUDA, from
+``_KERNEL_MIN_ROW_FLOPS`` a row, the streaming features kernel
+(``stratified_assign.transform_features``), whose features of a row do
+not depend on the other rows of the call; else host numpy. A TICA/VAMP
+transform projects in host numpy below
 ``_DEVICE_TRANSFORM_MIN_FLOPS`` and with an f32 ``torch.matmul`` on its
 device above it.
 """
@@ -23,7 +26,7 @@ import torch
 
 from .._device import as_device
 from .._logging import log
-from ..tracing import span
+from ..tracing import count, span
 from .stratified_assign import transform_features
 
 __all__ = [
@@ -74,16 +77,39 @@ Coordinates = IdentityCoordinates
 
 class MomentAccumulator:
     """Streaming first/second moments for PCA, combined across batches in
-    float64. ``dtype=np.float32`` computes each batch's second moment as an
-    f32 product on ``device`` (after f64 centering on the host)."""
+    float64. ``dtype=np.float32`` keeps ``mean`` and ``M2`` as f64 tensors
+    on ``device``: each batch is uploaded once as f64, centered there in
+    f64 before the f32 cast, its second moment is an f32 product, and
+    Chan's update runs there in f64. ``mean`` and ``M2`` read them to the
+    host on access (each read of ``M2`` counts ``moments_readbacks``; each
+    batch combined on the device counts ``moments_device_batches``)."""
 
     def __init__(self, n_features, dtype=np.float64, device="cpu"):
         self.n = 0.0  # total weight (== sample count when unweighted)
         self.n_samples = 0
         self.dtype = np.dtype(dtype)
         self.device = as_device(device)
-        self.mean = np.zeros(n_features, dtype=np.float64)
-        self.M2 = np.zeros((n_features, n_features), dtype=np.float64)
+        if self.dtype == np.float64:
+            self._mean = np.zeros(n_features, dtype=np.float64)
+            self._M2 = np.zeros((n_features, n_features), dtype=np.float64)
+        else:
+            self._mean = torch.zeros(n_features, dtype=torch.float64,
+                                     device=self.device)
+            self._M2 = torch.zeros((n_features, n_features),
+                                   dtype=torch.float64, device=self.device)
+
+    @property
+    def mean(self):
+        if isinstance(self._mean, np.ndarray):
+            return self._mean
+        return self._mean.to("cpu", copy=True).numpy()
+
+    @property
+    def M2(self):
+        if isinstance(self._M2, np.ndarray):
+            return self._M2
+        count("moments_readbacks")
+        return self._M2.to("cpu", copy=True).numpy()
 
     def add(self, X, weights=None):
         X = np.asarray(X, np.float64)
@@ -95,17 +121,24 @@ class MomentAccumulator:
         ws = float(w.sum())
         if ws == 0.0:
             return
+        n_new = self.n + ws
         if self.dtype == np.float64:
             mean_b = (X * w[:, None]).sum(axis=0) / ws
             Xc = X - mean_b[None, :]
             M2_b = (Xc * w[:, None]).T @ Xc
+            delta = mean_b - self._mean
+            self._M2 += M2_b + np.outer(delta, delta) * (self.n * ws / n_new)
         else:
-            mean_b, Xc = _center_f64(X, w, ws)
-            M2_b = _weighted_gram_f32(Xc, Xc, w, self.device)
-        n_new = self.n + ws
-        delta = mean_b - self.mean
-        self.M2 += M2_b + np.outer(delta, delta) * (self.n * ws / n_new)
-        self.mean += delta * (ws / n_new)
+            x = torch.as_tensor(np.ascontiguousarray(X), device=self.device)
+            wt = torch.as_tensor(w, device=self.device)
+            mean_b = (wt @ x) / ws
+            # Center in f64 before the f32 cast, as _center_f64 does
+            xc = (x - mean_b).float()
+            M2_b = ((xc * wt.float()[:, None]).T @ xc).double()
+            delta = mean_b - self._mean
+            self._M2 += M2_b.addr_(delta, delta, alpha=self.n * ws / n_new)
+            count("moments_device_batches")
+        self._mean += delta * (ws / n_new)
         self.n = n_new
         self.n_samples += len(X)
 
@@ -123,7 +156,8 @@ class MomentAccumulator:
             if not self.n > 1:
                 raise ValueError("Need more than one sample for PCA")
             denom = self.n - 1
-        cov = self.M2 / denom
+        M2, mean = self.M2, self.mean
+        cov = M2 / denom
         evals, evecs = np.linalg.eigh(cov)
         order = np.argsort(evals)[::-1]
         evals, evecs = np.maximum(evals[order], 0.0), evecs[:, order]
@@ -138,7 +172,7 @@ class MomentAccumulator:
                 )
         log.debug(f"PCA keeping {n_components} components")
         return PCAModel(
-            self.mean, evecs[:, :n_components].T, evals[:n_components], cov,
+            mean, evecs[:, :n_components].T, evals[:n_components], cov,
             device=self.device,
         )
 

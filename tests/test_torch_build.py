@@ -533,3 +533,75 @@ def test_pca_moments_and_device_transform_match_jax():
     np.testing.assert_allclose(pm.transform(X), jm.transform(X), rtol=1e-4, atol=1e-4)
     small = X[:50]
     np.testing.assert_array_equal(pm.transform(small), jm.transform(small))
+
+
+def _host_f32_moments(d, batches):
+    """The f32 moment path with its sums on the host: each batch centered
+    in f64 with numpy, its f32 product, Chan's update in numpy f64."""
+    from msm_we_tpu_torch.ops.pca import _weighted_gram_f32
+
+    n, mean, M2 = 0.0, np.zeros(d), np.zeros((d, d))
+    for X, w in batches:
+        w = np.ones(len(X)) if w is None else w
+        ws = float(w.sum())
+        if ws == 0.0:
+            continue
+        mean_b = (X * w[:, None]).sum(axis=0) / ws
+        Xc = (X - mean_b[None, :]).astype(np.float32)
+        M2_b = _weighted_gram_f32(Xc, Xc, w, "cpu")
+        n_new = n + ws
+        delta = mean_b - mean
+        M2 += M2_b + np.outer(delta, delta) * (n * ws / n_new)
+        mean += delta * (ws / n_new)
+        n = n_new
+    return mean, M2
+
+
+@pytest.mark.parametrize("d", [300, 900])
+@pytest.mark.parametrize("offset", [2.0, 1e3])
+def test_pca_device_moments_match_host_formula(d, offset):
+    """The f32 accumulator keeps mean and M2 on its device (torch CPU
+    tensors here): weighted batches, a zero-weight batch skipped, and the
+    sums read before ``finalize`` and again after more batches, against
+    the host formula and, far from the origin, against the f64 path."""
+    from msm_we_tpu_torch import tracing
+    from msm_we_tpu_torch.ops.pca import MomentAccumulator
+
+    rng = np.random.default_rng(11)
+    # A spread of ~0.01 a feature: at the offset of 1e3 an f32 cast before
+    # the centering would round each value by ~6e-5 and miss rtol 1e-4
+    mix = rng.normal(size=(d, d)) * (0.01 / np.sqrt(d))
+    batches = [(rng.normal(size=(n, d)) @ mix + offset, w)
+               for n, w in ((400, None), (257, rng.random(257)),
+                            (64, np.zeros(64)), (300, rng.random(300)))]
+    more = [(rng.normal(size=(n, d)) @ mix + offset, w)
+            for n, w in ((350, rng.random(350)), (128, None))]
+
+    def check(acc, seen):
+        mean, M2 = _host_f32_moments(d, seen)
+        got = acc.M2
+        np.testing.assert_allclose(got, M2, rtol=1e-4, atol=1e-4 * np.abs(M2).max())
+        np.testing.assert_allclose(acc.mean, mean, rtol=1e-12)
+        exact = MomentAccumulator(d)
+        for X, w in seen:
+            exact.add(X, w)
+        np.testing.assert_allclose(got, exact.M2, rtol=1e-4,
+                                   atol=1e-4 * np.abs(exact.M2).max())
+        assert acc.n == exact.n and acc.n_samples == exact.n_samples
+
+    acc = MomentAccumulator(d, dtype=np.float32, device="cpu")
+    with tracing.collect() as col:
+        for X, w in batches:
+            acc.add(X, w)
+        check(acc, batches)
+        first = acc.M2
+        for X, w in more:
+            acc.add(X, w)
+        assert not np.array_equal(acc.M2, first)
+        check(acc, batches + more)
+        model = acc.finalize(variance_cutoff=0.9)
+    assert col.counts == {"moments_device_batches": 5, "moments_readbacks": 5}
+    exact = MomentAccumulator(d)
+    for X, w in batches + more:
+        exact.add(X, w)
+    assert model.n_components == exact.finalize(variance_cutoff=0.9).n_components
